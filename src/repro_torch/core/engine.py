@@ -1,0 +1,493 @@
+"""CorrectionEngine: the whole-field FFCz pipeline as PLAN / EXECUTE / ENCODE.
+
+  PLAN     resolve user bounds to absolute dual bounds on the engine's device
+           (spectra only when a bound consumes them: ``Delta_abs`` needs no
+           forward FFT), apply :func:`float32_bound_discipline`.
+  EXECUTE  the POCS loop of :func:`repro_torch.core.pocs.alternating_projection`
+           on the device, then the exact float64 polish on the host.
+  ENCODE   pair-weight accounting, :func:`adaptive_quant_bits`, and
+           edit-stream serialization through :mod:`repro_torch.core.edits`.
+
+This slice of the port runs one whole field on one device (the reference's
+``local`` path).  The pencil paths (``plan_pencils``, ``correct*``,
+``encode_pencils``) and the ``batched`` / ``sharded`` backends raise
+``NotImplementedError``; ROADMAP.md lists them as later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.bounds import (
+    power_spectrum_delta_rfft,
+    resolve_bounds,
+    resolve_roi_bound_grid,
+)
+from repro_torch.core.cubes import rfft_pair_weights
+from repro_torch.core.edits import EncodedEdits, encode_edits
+from repro_torch.core.errors import FFCzError, InfeasibleBound, classify_exception
+from repro_torch.core.pocs import AlternatingProjectionResult, alternating_projection
+from repro_torch.device import resolve_device
+
+_BACKENDS = ("local", "batched", "sharded")
+_NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
+
+
+# ---------------------------------------------------------------------------
+# shared guarantee math (host numpy float64, as in the reference)
+
+
+def polish_pocs_float64(eps, spat, freq, E, Delta, axes=None, max_iters: int = 30):
+    """Exact (float64) POCS iterations to absorb float32 FFT round-off.
+
+    Runs on the rfft half-spectrum over ``axes`` (default: all axes), with
+    ``freq`` the matching half-spectrum accumulator.  Residual violations
+    after the float32 loop are O(eps32 * ||delta||_inf), orders of magnitude
+    below the bounds, so this converges in a handful of iterations.
+    """
+    axes = tuple(range(eps.ndim)) if axes is None else tuple(axes)
+    s = [eps.shape[a] for a in axes]
+    for _ in range(max_iters):
+        delta = np.fft.rfftn(eps, axes=axes)
+        re = np.clip(delta.real, -Delta, Delta)
+        im = np.clip(delta.imag, -Delta, Delta)
+        clipped = re + 1j * im
+        if np.array_equal(clipped, delta):
+            break
+        freq = freq + (clipped - delta)
+        eps_f = np.fft.irfftn(clipped, s=s, axes=axes)
+        eps_s = np.clip(eps_f, -E, E)
+        spat = spat + (eps_s - eps_f)
+        eps = eps_s
+    return eps, spat, freq
+
+
+def _host_l2_norm(x32: np.ndarray) -> float:
+    """l2 norm feeding the cast-noise slack, as a float64 numpy pairwise sum
+    on the host copy (the reference computes it the same way)."""
+    if not x32.size:
+        return 0.0
+    x64 = np.asarray(x32, dtype=np.float64)
+    return float(np.sqrt(np.sum(x64 * x64)))
+
+
+def float32_bound_discipline(E, Delta, m: int, l2_norm: float, abs_max: float):
+    """Shrink user bounds for quantization + float32-storage round-off.
+
+    Reserves 2x the direct quantization term (one for the stream's own
+    noise, one for the other stream's cross-domain leakage — matched by
+    :func:`adaptive_quant_bits`), subtracts the absolute float32 slack
+    (casting the reconstruction perturbs each frequency component by
+    ~u32*l2_norm, 4-sigma statistical budget, and each point by
+    u32*abs_max), and clamps Delta at 4x the frequency slack so the bound
+    stays representable.  ``Delta`` may be a scalar or a pointwise grid.
+
+    Returns ``(E_proj, Delta_proj, Delta_floored, slack_f)``.
+    """
+    u32 = float(np.finfo(np.float32).eps)
+    shrink = 1.0 - 2.0 ** (-m) - 2.0 ** (-m)
+    slack_f = 4.0 * u32 * float(l2_norm)
+    slack_s = u32 * float(abs_max)
+    Delta = np.maximum(Delta, 4.0 * slack_f)
+    return E * shrink - slack_s, Delta * shrink - slack_f, Delta, slack_f
+
+
+def adaptive_quant_bits(m: int, k_s: int, E: float, min_delta: float, sum_w_delta: float, n: int, cap: int = 48):
+    """Closed-form edit-stream bit-widths covering cross-domain quant leakage.
+
+    The base width ``m`` covers each stream's *direct* quantization term;
+    the widened widths also fit the cross terms inside the same reserved
+    margin: ``k_s`` quantized spatial edits perturb every frequency
+    component by up to ``k_s * E * 2^-m_s`` after the FFT (kept under
+    ``min_delta * 2^-m``), and the active frequency edits — ``sum_w_delta``
+    being their conjugate-pair-weighted Delta sum — perturb every spatial
+    point by up to ``(sqrt2/n) * sum_w_delta * 2^-m_f`` after the IFFT
+    (kept under ``E * 2^-m``).
+    """
+    m_s = m
+    if k_s > 0 and min_delta > 0 and E > 0:
+        m_s = m + max(0, int(np.ceil(np.log2(max(k_s * E / min_delta, 1.0)))))
+    m_f = m
+    if sum_w_delta > 0 and E > 0 and n > 0:
+        ratio = np.sqrt(2.0) * sum_w_delta / (n * E)
+        m_f = m + max(0, int(np.ceil(np.log2(max(ratio, 1.0)))))
+    return min(m_s, cap), min(m_f, cap)
+
+
+# ---------------------------------------------------------------------------
+# plan and result objects
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldPlan:
+    """PLAN-stage output for one whole-field correction.
+
+    ``Delta`` is the representability-floored bound the edits are encoded
+    against (scalar, or a float32 half-spectrum ``Delta_k`` grid in
+    ``pspec`` mode); ``E_proj``/``Delta_proj`` are the shrunk bounds the
+    projection runs with (see :func:`float32_bound_discipline`).  Field
+    names and meanings are the reference's, so a reference plan converts
+    one to one (:func:`repro_torch.convert.plan_from_reference`).
+    """
+
+    shape: Tuple[int, ...]
+    E: float
+    Delta: Union[float, np.ndarray]
+    E_proj: float
+    Delta_proj: Union[float, np.ndarray]
+    slack_f: float
+    pointwise: bool
+    quant_bits: int
+    max_iters: int
+    relax: float
+    use_kernels: bool
+    codec: str
+    fft_impl: str = "xla"
+    check_every: int = 1
+    warm_start: bool = False
+    # ROI bounds: per-point float32 spatial bound grid and its disciplined
+    # projection twin, or None for uniform E
+    E_grid: Optional[np.ndarray] = None
+    E_grid_proj: Optional[np.ndarray] = None
+
+    @property
+    def roi(self) -> bool:
+        """True when the plan carries a per-point spatial bound grid."""
+        return self.E_grid is not None
+
+    @property
+    def delta_scalar(self) -> float:
+        """Scalar Delta for the blob header (nan when pointwise)."""
+        return float("nan") if self.pointwise else float(self.Delta)
+
+    def pointwise_bytes(self) -> Optional[bytes]:
+        """float32 half-spectrum Delta_k grid for the blob, or None."""
+        if not self.pointwise:
+            return None
+        return np.asarray(self.Delta, dtype=np.float32).tobytes()
+
+    def roi_bytes(self) -> Optional[bytes]:
+        """float32 spatial E_n grid for the blob's FFCR section, or None."""
+        if self.E_grid is None:
+            return None
+        return np.asarray(self.E_grid, dtype=np.float32).tobytes()
+
+
+@dataclasses.dataclass
+class FieldResult:
+    """EXECUTE-stage output: float64-exact loop state ready to encode.
+
+    When ``converged`` is False, ``final_violations`` is the pair-weighted
+    full-spectrum count of frequency components still outside the (shrunk)
+    f-cube *after* the float64 polish.
+    """
+
+    eps: np.ndarray  # final error vector (float64, inside the s-cube)
+    spat: np.ndarray  # spatial edit accumulator (float64)
+    freq: np.ndarray  # frequency edit accumulator (complex128, rfft layout)
+    iterations: int
+    converged: bool
+    final_violations: int = 0
+
+
+class FieldExecuteHandle:
+    """One in-flight whole-field EXECUTE; ``result()`` fences and polishes.
+
+    The fence is a CUDA event recorded on the loop's stream after its last
+    launch (nothing to wait for on the CPU).  ``result()`` is idempotent and
+    caches the finalized :class:`FieldResult` or the classified error.
+    """
+
+    def __init__(self, engine: "CorrectionEngine", raw: AlternatingProjectionResult, plan: FieldPlan):
+        self._engine = engine
+        self._raw = raw
+        self._plan = plan
+        self._event = None
+        if raw.eps.device.type == "cuda":
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(raw.eps.device))
+        self._value: Optional[FieldResult] = None
+        self._exc: Optional[FFCzError] = None
+
+    def result(self) -> FieldResult:
+        if self._exc is not None:
+            raise self._exc
+        if self._value is None:
+            try:
+                self._value = self._engine._finalize_field(self._raw, self._event, self._plan)
+            except FFCzError as err:
+                self._exc = err
+                raise
+            finally:
+                self._raw = self._event = None
+        return self._value
+
+
+# ---------------------------------------------------------------------------
+# the engine
+
+
+class CorrectionEngine:
+    """Plan / execute / encode whole-field FFCz corrections on one device.
+
+    Args:
+      backend: ``"local"`` only in this slice; ``"batched"`` and ``"sharded"``
+        raise ``NotImplementedError``.  Whole fields take their transform
+        selector from ``FFCzConfig.fft_impl`` via the plan.
+      device: where PLAN's spectra and EXECUTE's loop run; ``None`` means
+        ``"cuda"`` and raises when there is no card (never a CPU fallback).
+    """
+
+    def __init__(self, backend: str = "local", device=None):
+        if backend not in _BACKENDS:
+            raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
+        if backend != "local":
+            raise NotImplementedError(f"the {backend!r} backend {_NOT_PORTED}")
+        self.backend = backend
+        self.device = resolve_device(device)
+
+    # -- PLAN --------------------------------------------------------------
+
+    def plan_field(self, x: np.ndarray, cfg) -> FieldPlan:
+        """Resolve one whole field's bounds on the device (cfg: FFCzConfig).
+
+        The forward spectrum is computed (a float32 device rfft) only when a
+        bound consumes it: ``pspec_rel`` needs the pointwise grid,
+        ``Delta_rel`` needs ``max_k |X_k|``, ``Delta_abs`` needs none.
+        Relative bounds resolved from the float32 spectrum can differ from
+        another backend's at float32 rounding level; the blob stores the
+        values it was built with and every guarantee is checked against
+        those.
+        """
+        x32 = np.asarray(x, dtype=np.float32)
+        x_dev = torch.from_numpy(np.ascontiguousarray(x32)).to(self.device)
+        if cfg.pspec_rel is not None:
+            X = torch.fft.rfftn(x_dev)
+            grid = power_spectrum_delta_rfft(X, cfg.pspec_rel)
+            gmax = float(torch.max(grid))
+            if gmax <= 0:
+                # grid = t*|X|/sqrt(2) with floor 0: gmax == 0 iff the field
+                # is all-zero, and every Delta_k would resolve to 0
+                raise InfeasibleBound(
+                    f"pspec_rel={float(cfg.pspec_rel):g} on an all-zero field: every "
+                    "Delta_k resolves to 0 (no spectrum to preserve); use Delta_abs "
+                    "for zero fields",
+                    stage="plan",
+                )
+            floor = torch.tensor(np.float32(gmax * cfg.pspec_floor_rel), device=self.device)
+            Delta_user = torch.maximum(grid, floor).cpu().numpy()
+            bounds = resolve_bounds(x_dev, E_abs=cfg.E_abs, E_rel=cfg.E_rel, Delta_abs=1.0)
+            pointwise = True
+        elif cfg.Delta_abs is not None:
+            bounds = resolve_bounds(x_dev, E_abs=cfg.E_abs, E_rel=cfg.E_rel, Delta_abs=cfg.Delta_abs)
+            Delta_user = float(bounds.Delta)
+            pointwise = False
+        else:
+            X = torch.fft.rfftn(x_dev)
+            bounds = resolve_bounds(x_dev, E_abs=cfg.E_abs, E_rel=cfg.E_rel, Delta_rel=cfg.Delta_rel, X=X)
+            Delta_user = float(bounds.Delta)
+            pointwise = False
+        E = float(bounds.E)
+        l2_norm = _host_l2_norm(x32)
+        abs_max = float(torch.max(torch.abs(x_dev))) if x32.size else 0.0
+        E_proj, Delta_proj, Delta, slack_f = float32_bound_discipline(
+            E, Delta_user, cfg.quant_bits, l2_norm, abs_max
+        )
+        E_grid = E_grid_proj = None
+        E_roi = getattr(cfg, "E_roi", None)
+        if E_roi is not None:
+            E_grid = resolve_roi_bound_grid(
+                E_roi, E, tuple(x32.shape), scale=getattr(cfg, "E_roi_scale", 0.1)
+            )
+            E_grid_proj, _, _, _ = float32_bound_discipline(
+                E_grid, Delta_user, cfg.quant_bits, l2_norm, abs_max
+            )
+            E_grid_proj = np.asarray(E_grid_proj, dtype=np.float32)
+            if float(np.min(E_grid_proj)) <= 0:
+                raise InfeasibleBound(
+                    f"tightest ROI bound E_n={float(np.min(E_grid)):g} below float32 "
+                    "representability for this data",
+                    stage="plan",
+                )
+        if not pointwise:
+            Delta_proj = float(Delta_proj)
+            Delta = float(Delta)
+        if E_proj <= 0:
+            raise InfeasibleBound(
+                f"spatial bound E={E:g} below float32 representability for this data",
+                stage="plan",
+            )
+        if float(np.min(Delta_proj)) <= 0:
+            raise InfeasibleBound(
+                f"frequency bound Delta={float(np.min(np.asarray(Delta_user))):g} below float32 "
+                f"representability after the quantization shrink (quant_bits={cfg.quant_bits})",
+                stage="plan",
+            )
+        return FieldPlan(
+            shape=tuple(x32.shape),
+            E=E,
+            Delta=Delta,
+            E_proj=float(E_proj),
+            Delta_proj=Delta_proj,
+            slack_f=float(slack_f),
+            pointwise=pointwise,
+            quant_bits=cfg.quant_bits,
+            max_iters=cfg.max_iters,
+            relax=cfg.relax,
+            use_kernels=cfg.use_kernels,
+            codec=cfg.codec,
+            fft_impl=getattr(cfg, "fft_impl", "xla"),
+            check_every=getattr(cfg, "check_every", 1),
+            warm_start=getattr(cfg, "warm_start", False),
+            E_grid=E_grid,
+            E_grid_proj=E_grid_proj,
+        )
+
+    def plan_pencils(self, *args, **kwargs):
+        raise NotImplementedError(f"plan_pencils {_NOT_PORTED}")
+
+    # -- EXECUTE -----------------------------------------------------------
+
+    def execute_field(
+        self, eps0: np.ndarray, plan: FieldPlan, warm_freq: Optional[np.ndarray] = None
+    ) -> FieldResult:
+        """The device POCS loop + the exact float64 host polish.
+
+        The loop runs in float32; a few exact host-side POCS iterations
+        absorb the FFT round-off so the *shrunk* bounds hold in float64.
+        ``warm_freq`` (complex half-spectrum) seeds the loop's ``freq_edits``
+        only when ``plan.warm_start`` is True.
+        """
+        return self.execute_field_async(eps0, plan, warm_freq=warm_freq).result()
+
+    def execute_field_async(
+        self, eps0: np.ndarray, plan: FieldPlan, warm_freq: Optional[np.ndarray] = None
+    ) -> FieldExecuteHandle:
+        """Run the POCS loop on the device; return a handle before the host
+        half (fence, staging, float64 polish).  Device failures classify as
+        ``execute``-stage :class:`~repro_torch.core.errors.FFCzError`s."""
+        if not plan.warm_start:
+            warm_freq = None  # neutrality: cold plans never see a warm state
+        try:
+            E_op = (
+                plan.E_proj
+                if plan.E_grid_proj is None
+                else torch.from_numpy(np.ascontiguousarray(plan.E_grid_proj, dtype=np.float32)).to(self.device)
+            )
+            if plan.pointwise:
+                Delta_op = torch.from_numpy(np.ascontiguousarray(plan.Delta_proj, dtype=np.float32)).to(self.device)
+            else:
+                Delta_op = plan.Delta_proj
+            eps_dev = torch.from_numpy(np.ascontiguousarray(eps0, dtype=np.float32)).to(self.device)
+            res = alternating_projection(
+                eps_dev,
+                E_op,
+                Delta_op,
+                max_iters=plan.max_iters,
+                use_kernels=plan.use_kernels,
+                relax=plan.relax,
+                check_slack=0.5 * plan.slack_f,
+                fft_impl=plan.fft_impl,
+                check_every=plan.check_every,
+                warm_freq=None if warm_freq is None
+                else torch.from_numpy(np.asarray(warm_freq, dtype=np.complex64)).to(self.device),
+            )
+        except (RuntimeError, MemoryError) as e:
+            # device dispatch / allocation failures carry stage + disposition
+            # (OOM -> "bisect") so callers can act without string-matching
+            raise classify_exception(e, "execute") from e
+        return FieldExecuteHandle(self, res, plan)
+
+    def _finalize_field(self, res: AlternatingProjectionResult, event, plan: FieldPlan) -> FieldResult:
+        """The fence + host half of EXECUTE (see :meth:`execute_field_async`)."""
+        try:
+            if event is not None:
+                event.synchronize()
+            spat = res.spat_edits.cpu().numpy().astype(np.float64)
+            freq = res.freq_edits.cpu().numpy().astype(np.complex128)
+            eps_f = res.eps.cpu().numpy().astype(np.float64)
+        except (RuntimeError, MemoryError) as e:
+            # an asynchronous device failure surfaces at the fence
+            raise classify_exception(e, "execute") from e
+        E_pol = (
+            plan.E_proj
+            if plan.E_grid_proj is None
+            else np.asarray(plan.E_grid_proj, dtype=np.float64)
+        )
+        eps_f, spat, freq = polish_pocs_float64(
+            eps_f, spat, freq, E_pol, np.asarray(plan.Delta_proj, dtype=np.float64)
+        )
+        converged = bool(res.converged)
+        final_violations = 0
+        if not converged:
+            # exact post-polish count, pair-weighted (full-spectrum semantics)
+            d = np.fft.rfftn(eps_f)
+            tol = np.asarray(plan.Delta_proj, dtype=np.float64)
+            bad = (np.abs(d.real) > tol) | (np.abs(d.imag) > tol)
+            w = np.broadcast_to(rfft_pair_weights(plan.shape).numpy(), bad.shape)
+            final_violations = int(np.sum(w * bad))
+        return FieldResult(
+            eps=eps_f,
+            spat=spat,
+            freq=freq,
+            iterations=int(res.iterations),
+            converged=converged,
+            final_violations=final_violations,
+        )
+
+    def correct(self, *args, **kwargs):
+        raise NotImplementedError(f"correct {_NOT_PORTED}")
+
+    def correct_async(self, *args, **kwargs):
+        raise NotImplementedError(f"correct_async {_NOT_PORTED}")
+
+    # -- ENCODE ------------------------------------------------------------
+
+    def encode_field(self, result: FieldResult, plan: FieldPlan) -> Tuple[EncodedEdits, EncodedEdits]:
+        """Serialize a whole field's edit streams with adaptive bit-widths.
+
+        K_s and the active pair-weighted Delta sum are known exactly
+        post-projection, so the widths come from the closed form in
+        :func:`adaptive_quant_bits`.  The Delta sum runs over the *full*
+        spectrum, so each active half-spectrum edit contributes with its
+        conjugate-pair multiplicity.
+        """
+        k_s = int(np.count_nonzero(result.spat))
+        pair_w = np.broadcast_to(rfft_pair_weights(plan.shape).numpy(), result.freq.shape)
+        delta_b = np.broadcast_to(np.asarray(plan.Delta), result.freq.shape)
+        sum_active_delta = float(np.sum((pair_w * delta_b)[result.freq != 0]))
+        n = int(np.prod(plan.shape)) if plan.shape else 1
+        m_s, m_f = adaptive_quant_bits(
+            plan.quant_bits,
+            k_s,
+            plan.E,
+            float(np.min(plan.Delta)),
+            sum_active_delta,
+            n,
+        )
+        if plan.roi:
+            # per-point spatial bounds: m_f must keep the IFFT leakage of the
+            # frequency stream under the tightest point's reserved margin
+            _, m_f = adaptive_quant_bits(
+                plan.quant_bits,
+                k_s,
+                float(np.min(plan.E_grid)),
+                float(np.min(plan.Delta)),
+                sum_active_delta,
+                n,
+            )
+        try:
+            se = encode_edits(
+                result.spat, plan.E_grid if plan.roi else plan.E, m=m_s, codec=plan.codec
+            )
+            fe = encode_edits(result.freq, plan.Delta, m=m_f, codec=plan.codec, half_spectrum=True)
+        except (RuntimeError, MemoryError, OSError) as e:
+            raise classify_exception(e, "encode") from e
+        return se, fe
+
+    def encode_pencils(self, *args, **kwargs):
+        raise NotImplementedError(f"encode_pencils {_NOT_PORTED}")

@@ -1,0 +1,320 @@
+"""Alternating projection-correction (paper Alg. 1) as a host-driven loop.
+
+The paper's CUDA pipeline launches per-iteration kernels from the host
+(cuFFT -> CheckConvergence -> ProjectOntoFCube -> cuFFT -> ProjectOntoSCube)
+and synchronises on the convergence flag.  This module is that loop in
+PyTorch: a Python ``while`` whose body enqueues cuFFT calls (``torch.fft``)
+and the fused kernels of :mod:`repro_torch.kernels` on the current stream.
+The host reads the violation count back only on the iterations that check
+convergence (every ``check_every``-th and the last), so between checks the
+body never waits for the device.
+
+Semantics match Alg. 1 (and the reference package's ``lax.while_loop``)
+exactly:
+
+  eps <- x_hat - x                       (inside the s-cube by construction)
+  loop:
+    delta <- FFT(eps)
+    if delta inside f-cube: stop          (CheckConvergence)
+    delta' <- clip(delta, +-Delta)        (ProjectOntoFCube)
+    freq_edits += delta' - delta
+    eps <- IFFT(delta')
+    eps' <- clip(eps, +-E)                (ProjectOntoSCube)
+    spat_edits += eps' - eps
+    eps <- eps'
+
+Iteration accounting: the terminating check counts as an iteration (a field
+already inside both cubes reports 1), and ``final_violations`` is 0 when the
+loop converged, else the count of the last (always checking) iteration.
+
+The loop runs on the rfft half-spectrum by default (``use_rfft=True``);
+violation counts weight each component by its conjugate-pair multiplicity so
+they keep full-spectrum semantics.  ``use_rfft=False`` keeps the complex-FFT
+oracle.  Transform selector ``fft_impl``:
+
+  ``"xla"``     ``torch.fft.rfftn`` / ``irfftn`` (the name is the reference
+                package's; here both are cuFFT or the CPU FFT).
+  ``"packed"``  the forward ``rfftn`` + the pack-trick C2R inverse
+                (:func:`repro_torch.kernels.rfft.packed_irfftn`).
+  ``"pallas"``  the packed transforms with the fused CUDA epilogues of
+                :mod:`repro_torch.kernels.rfft` (the name is kept so one
+                ``FFCzConfig`` means the same to both packages).
+
+Shapes with an odd last axis fall back statically: ``"packed"`` to the plain
+transforms, ``"pallas"`` to the plain transforms + the fused fcube/scube
+kernels of the ``use_kernels`` path.
+
+In-place accumulation: the loop adds each iteration's displacements into the
+``spat_edits`` / ``freq_edits`` tensors it owns (``add_``), which gives the
+same values as the reference's out-of-place sums.
+
+Layout: the CUDA kernels take contiguous tensors only, and cuFFT's
+multi-dimensional transforms may hand back other strides, so every
+transform output is made contiguous (a no-op when it already is).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.cubes import (
+    project_box_relaxed,
+    project_fcube,
+    project_fcube_relaxed,
+    project_scube,
+    rfft_shape,
+)
+from repro_torch.kernels.fcube import ops as fcube_ops
+from repro_torch.kernels.rfft import ops as rfft_ops
+from repro_torch.kernels.scube import ops as scube_ops
+
+
+@dataclasses.dataclass
+class AlternatingProjectionResult:
+    eps: torch.Tensor  # final spatial error vector (inside s-cube; inside f-cube if converged)
+    spat_edits: torch.Tensor  # accumulated displacement along the spatial basis (real)
+    # accumulated displacement along the frequency basis (complex); rfft
+    # half-spectrum layout (last axis N//2+1) when use_rfft, else full spectrum
+    freq_edits: torch.Tensor
+    iterations: int  # iteration count
+    converged: bool  # inside both cubes
+    final_violations: int  # f-cube violations at exit (0 if converged)
+
+
+_FFT_IMPLS = ("xla", "packed", "pallas")
+
+# Convergence test uses a float32-resolution tolerance: below ~1e-5 relative
+# the float32 FFT round-trip oscillates and cannot make progress; the exact
+# float64 polish owns the last digits.
+_CHECK_TOL = 1e-5
+
+
+def _bound(b, like: torch.Tensor):
+    """A scalar bound stays a host float rounded to ``like``'s real dtype (no
+    device read-back inside the loop); an array bound becomes a tensor."""
+    real = like.real if like.is_complex() else like
+    if getattr(b, "ndim", 0) == 0:
+        v = float(b)
+        return float(np.float32(v)) if real.dtype == torch.float32 else v
+    return torch.as_tensor(b, dtype=real.dtype, device=like.device)
+
+
+def alternating_projection(
+    eps0: torch.Tensor,
+    E,
+    Delta,
+    max_iters: int = 1000,
+    use_kernels: bool = False,
+    relax: float = 1.0,
+    check_slack=0.0,
+    use_rfft: bool = True,
+    dist: Optional[Any] = None,
+    fft_impl: str = "xla",
+    check_every: int = 1,
+    warm_freq: Optional[torch.Tensor] = None,
+) -> AlternatingProjectionResult:
+    """Run Alg. 1 from an initial spatial error vector ``eps0``.
+
+    Args:
+      eps0: x_hat - x from the base compressor (any rank, real tensor); the
+        loop runs on its device.
+      E, Delta: scalar or broadcastable pointwise bounds.  Under ``use_rfft``
+        a pointwise ``Delta`` may be given on the half-spectrum
+        (``rfft_shape(eps0.shape)``) or on the full spectrum (sliced to the
+        half-spectrum).
+      max_iters: POCS iteration cap.
+      use_kernels: route the projections through the fused fcube/scube
+        kernels (their plain twins for CPU tensors).
+      relax: over-relaxation factor; 1.0 is the paper's plain alternating
+        projection, ``1 < relax < 2`` keeps Fejer monotonicity.
+      check_slack: host scalar absolute allowance added to the convergence
+        threshold (see :func:`repro_torch.kernels.fcube.ops.threshold_scalars`).
+      use_rfft: run on the Hermitian half-spectrum (the fast path).
+      dist: distributed pencil mode is not ported (raises
+        ``NotImplementedError``; see ROADMAP.md).
+      fft_impl: ``"xla"`` | ``"packed"`` | ``"pallas"`` (see module
+        docstring); ``"pallas"`` needs ``use_rfft``, ``relax == 1.0`` and no
+        ``use_kernels``.
+      check_every: run the convergence check every K-th iteration (and on
+        the final one); the count is read back to the host only then.
+      warm_freq: optional complex seed for ``freq_edits`` (the loop's
+        frequency-state shape), applied through the loop's own inverse and
+        s-cube-projected before iteration 0 so that
+        ``eps == eps0 + IFFT(freq_edits) + spat_edits`` holds exactly.
+
+    Returns an :class:`AlternatingProjectionResult` whose tensors live on
+    ``eps0``'s device.
+    """
+    if dist is not None:
+        raise NotImplementedError(
+            "distributed pencil mode is not ported to repro_torch yet (see ROADMAP.md)"
+        )
+    if fft_impl not in _FFT_IMPLS:
+        raise ValueError(f"fft_impl must be one of {_FFT_IMPLS}, got {fft_impl!r}")
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    if fft_impl != "xla" and not use_rfft:
+        raise ValueError("fft_impl='packed'/'pallas' require the rfft path (use_rfft=True)")
+    if fft_impl == "pallas":
+        if use_kernels:
+            raise ValueError(
+                "fft_impl='pallas' already fuses the projections into its "
+                "epilogue kernels; drop use_kernels"
+            )
+        if relax != 1.0:
+            raise ValueError("fft_impl='pallas' supports only relax == 1.0")
+    dtype = eps0.dtype
+    cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    shape = tuple(eps0.shape)
+    E = _bound(E, eps0)
+    Delta_r = _bound(Delta, eps0)
+    # threshold scalars of the plain count, rounded to the loop's precision
+    # as the reference rounds them (the fused kernels round their own)
+    if dtype == torch.float64:
+        tol1, slack = 1.0 + _CHECK_TOL, float(check_slack)
+    else:
+        tol1, slack = fcube_ops.threshold_scalars(_CHECK_TOL, check_slack)
+
+    packed_ok = fft_impl != "xla" and rfft_ops.supports_packed(shape)
+    pallas_fused = fft_impl == "pallas" and packed_ok
+    if fft_impl == "pallas" and not packed_ok:
+        use_kernels = True
+    n_last = shape[-1] if shape else 1
+    if use_rfft:
+        if isinstance(Delta_r, torch.Tensor) and tuple(Delta_r.shape) == shape:
+            # full-spectrum pointwise grid: Hermitian-symmetric by contract,
+            # so the rfft half-plane slice is exact
+            Delta_r = Delta_r[..., : shape[-1] // 2 + 1]
+        freq_shape = rfft_shape(shape)
+
+        def fwd(e):
+            return torch.fft.rfftn(e).to(cdtype).contiguous()
+
+        if packed_ok:
+            def inv(d):
+                return rfft_ops.packed_irfftn(d, shape).to(dtype).contiguous()
+        else:
+            def inv(d):
+                return torch.fft.irfftn(d, s=shape).to(dtype).contiguous()
+    else:
+        freq_shape = shape
+
+        def fwd(e):
+            return torch.fft.fftn(e).to(cdtype).contiguous()
+
+        def inv(d):
+            return torch.fft.ifftn(d).real.to(dtype).contiguous()
+
+    if isinstance(Delta_r, torch.Tensor) and pallas_fused:
+        Delta_r = torch.broadcast_to(Delta_r, freq_shape).contiguous()
+
+    if use_kernels:
+        def f_project(delta):
+            clipped, disp, viol = fcube_ops.project_fcube_fused(
+                delta, Delta_r, n_last=n_last if use_rfft else None,
+                check_tol=_CHECK_TOL, check_slack=check_slack,
+            )
+            if relax != 1.0:
+                clipped, _ = project_fcube(delta + relax * disp, Delta_r)
+                disp = clipped - delta
+            return clipped, disp, viol
+
+        def s_project(eps):
+            clipped, disp = scube_ops.project_scube_fused(eps, E)
+            if relax != 1.0:
+                clipped, _ = project_scube(eps + relax * disp, E)
+                disp = clipped - eps
+            return clipped, disp
+    else:
+        # last-axis k=0 plane (and the Nyquist plane for even N) counts once,
+        # every other half-spectrum component twice
+        has_nyquist = use_rfft and n_last % 2 == 0 and n_last // 2 + 1 > 1
+        dt = torch.as_tensor(Delta_r, dtype=eps0.dtype, device=eps0.device) * torch.tensor(
+            tol1, dtype=eps0.dtype, device=eps0.device
+        ) + torch.tensor(slack, dtype=eps0.dtype, device=eps0.device)
+
+        def count_violations(delta):
+            vb = (torch.abs(delta.real) > dt) | (torch.abs(delta.imag) > dt)
+            if use_rfft:
+                viol = 2 * torch.sum(vb) - torch.sum(vb[..., 0])
+                if has_nyquist:
+                    viol = viol - torch.sum(vb[..., -1])
+            else:
+                viol = torch.sum(vb)
+            return viol
+
+        def f_project(delta):
+            if relax == 1.0:
+                clipped, disp = project_fcube(delta, Delta_r)
+            else:
+                clipped = project_fcube_relaxed(delta, Delta_r, relax)
+                disp = clipped - delta
+            return clipped, disp, None
+
+        def s_project(eps):
+            if relax == 1.0:
+                return project_scube(eps, E)
+            clipped = project_box_relaxed(eps, E, relax)
+            return clipped, clipped - eps
+
+    if warm_freq is None:
+        eps, spat = eps0, torch.zeros_like(eps0)
+        if isinstance(E, torch.Tensor):
+            # pointwise spatial bounds (ROI grids): the base compressor only
+            # guarantees the global bound, so restore "state inside the
+            # s-cube" before iteration 0 (a trivially converged loop would
+            # otherwise return eps0 unclipped)
+            eps, spat = project_scube(eps0, E)
+            eps, spat = eps.to(dtype), spat.to(dtype)
+        freq = torch.zeros(freq_shape, dtype=cdtype, device=eps0.device)
+    else:
+        warm = torch.as_tensor(warm_freq, device=eps0.device).to(cdtype)
+        if tuple(warm.shape) != tuple(freq_shape):
+            raise ValueError(
+                f"warm_freq must have the loop's frequency-state shape "
+                f"{tuple(freq_shape)}, got {tuple(warm.shape)}"
+            )
+        eps, spat = project_scube(eps0 + inv(warm), E)
+        eps, spat = eps.to(dtype), spat.to(dtype)
+        freq = warm.clone()
+
+    it, done, viol = 0, False, -1
+    while not done and it < max_iters:
+        delta = fwd(eps)
+        if pallas_fused:
+            # one pass: f-clip + displacement + pair-weighted count + the
+            # inverse pack twiddle feeding the half-length ifftn
+            _clipped, f_disp, Z, viol_dev = rfft_ops.fwd_epilogue_fused(
+                delta, Delta_r, weighted=True, check_tol=_CHECK_TOL, check_slack=check_slack
+            )
+        else:
+            clipped, f_disp, viol_dev = f_project(delta)
+        if check_every == 1 or it % check_every == 0 or it == max_iters - 1:
+            if viol_dev is None:
+                viol_dev = count_violations(delta)
+            viol = int(viol_dev)  # the host waits for the device here only
+            done = viol == 0
+        else:
+            viol = -1
+        if not done:
+            freq.add_(f_disp)
+            if pallas_fused:
+                z = torch.fft.ifftn(Z).contiguous()
+                eps_s, s_disp = rfft_ops.unpack_sclip_fused(z, E, shape)
+            else:
+                eps_s, s_disp = s_project(inv(clipped))
+            spat.add_(s_disp.to(dtype))
+            eps = eps_s.to(dtype)
+        it += 1
+    return AlternatingProjectionResult(
+        eps=eps,
+        spat_edits=spat,
+        freq_edits=freq,
+        iterations=it,
+        converged=done,
+        final_violations=0 if done else viol,
+    )

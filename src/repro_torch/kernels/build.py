@@ -1,0 +1,162 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface
+(``extern "C"`` launchers returning the ``cudaError_t`` of
+``cudaGetLastError()``), compiled for Hopper::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+
+into ``build/repro_torch/`` at the root of the checkout.  The library's file
+name carries a hash of its sources and flags, so an edited source rebuilds and
+an unchanged one loads as is.  Nothing builds at import: the first launch of a
+kernel builds its library (or :func:`build_all` builds every one, one ``nvcc``
+process per source, all started together).
+
+The module also holds the launch plumbing every wrapper shares: operand
+checks (:func:`check_cuda`), bound operands (:func:`bound_operand`) and the
+error check after a launch (:func:`check`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+#: one shared library per source; every source includes csrc/common.cuh
+SOURCES = ("scube", "fcube", "rfft")
+
+_P, _F, _I, _L = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
+#: argtypes of each library's launchers (pointers and the stream as c_void_p)
+SIGNATURES = {
+    "scube": {"scube_launch": (_P, _P, _F, _I, _P, _P, _L, _P)},
+    "fcube": {"fcube_launch": (_P, _P, _F, _I, _F, _F, _L, _I, _I, _P, _P, _P, _L, _P)},
+    "rfft": {
+        "rfft_fwd_epilogue_launch": (
+            _P, _P, _F, _I, _P, _F, _F, _I, _L, _L, _L, _L, _P, _P, _P, _P, _P,
+        )
+    },
+}
+
+#: the kernels index in 32 bits
+MAX_NUMEL = 2**31 - 1
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when the toolkit is absent."""
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("repro_torch: nvcc not found (needs the CUDA toolkit)")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> Optional[tuple]:
+    """Start nvcc for ``name`` unless its library is built; (proc, tmp, out)."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=out.name, suffix=".tmp", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started: Optional[tuple]) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"repro_torch: nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent builder never sees half a file
+
+
+def build_all() -> float:
+    """Build every library whose sources changed, one nvcc per source in
+    parallel; returns the wall seconds taken."""
+    t0 = time.perf_counter()
+    with _lock:
+        started = {name: _start(name) for name in SOURCES}
+        for name, s in started.items():
+            _finish(name, s)
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` with its launchers' ``argtypes`` set,
+    building it first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+    return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"repro_torch: {what} launch failed with cudaError_t {err}")
+
+
+def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` whose
+    element count fits the kernels' 32-bit index space."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.numel() > MAX_NUMEL:
+        raise ValueError(f"{name} has {t.numel()} elements; the kernels take < 2^31")
+
+
+def bound_operand(b, shape, device) -> Tuple[Optional[torch.Tensor], float, int]:
+    """``(grid, scalar, pointwise)`` kernel operands of a scalar or array bound.
+
+    A scalar bound is passed by value, rounded to float32 (a Python float
+    costs nothing; a 0-d CUDA tensor is read back, which waits for the
+    device — the POCS loop keeps its scalar bounds on the host).  An array
+    bound becomes a contiguous float32 grid of ``shape`` on ``device``.
+    """
+    if getattr(b, "ndim", 0) == 0:
+        return None, float(np.float32(float(b))), 0
+    grid = torch.broadcast_to(torch.as_tensor(b, dtype=torch.float32, device=device), shape)
+    return grid.contiguous(), 0.0, 1

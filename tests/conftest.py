@@ -32,6 +32,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "timeout(seconds): per-test wall-clock bound (pytest-timeout)"
     )
+    config.addinivalue_line("markers", "gpu: needs a CUDA device; skips without one")
 
 
 @pytest.fixture(scope="session")

@@ -7,7 +7,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``
 (into ``build/``), holds each kernel against its plain PyTorch twin on the
 card at the main path's shapes, then drives ``FFCz.compress`` /
 ``FFCz.decompress`` with ``FFCzConfig(fft_impl="pallas")`` at full size and
-rechecks both stored bounds in float64.  Phases, one JSON line each:
+rechecks both stored bounds in float64, and drives the qwen2-0.5b dense LM
+at full width (``ModelBundle.loss`` and ``ServingEngine``).  Phases, one
+JSON line each (or more):
 
   1 device    card name, count, nvidia-smi name and power limit
   2 build     nvcc wall seconds (one process per source, in parallel)
@@ -17,7 +19,15 @@ rechecks both stored bounds in float64.  Phases, one JSON line each:
   5 odd       the same field cropped to 256x256x255: kernels 1 and 2 launch
   6 pointwise pspec_rel (pointwise Delta) and an E_roi mask (pointwise E)
   7 golden    the three blobs in tests/data decode to their stored outputs
-  8 summary   the kernels line, the nvidia-smi line, then {"ok": true, ...}
+  8 lm        flash attention vs its twin (float32 atol 3e-5; bfloat16 one
+              ulp at each element's magnitude, 3e-5 floor) with kernel, twin
+              and scaled_dot_product_attention times; the forward loss of
+              qwen2-0.5b at 4x2048 tokens (24 kernel launches, against the
+              naive impl within 1e-3); ServingEngine prefill + greedy decode
+              of 8 requests, decode logits against a cache-less forward
+              (bf16: within 2e-2 of the flash-vs-naive floor; float32, one
+              batch: within 1e-4)
+  9 summary   the kernels line, the nvidia-smi line, then {"ok": true, ...}
 
 Any failure exits non-zero before the last line.  The script needs a CUDA
 card and the repository around it: without either it exits 2 and prints no
@@ -34,9 +44,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor FP32 FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor FP32 FLOP/s
+# and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12
 # phase 6 runs at 128^3, not the 256^3 of phases 4-5: the pspec bound makes
 # every frequency component an edit (~8.5M at 256^3), and the host Huffman
 # coder (a byte-identical copy of the reference's) would not finish in the
@@ -233,14 +245,276 @@ def phase_kernels(dev):
 
 
 def reset_launches():
+    """Set every kernel's launch count to 0; returns a reader of the counts."""
     from repro_torch.kernels.fcube import ops as fcube_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rfft import ops as rfft_ops
     from repro_torch.kernels.scube import ops as scube_ops
 
-    for counters in (scube_ops.launches, fcube_ops.launches, rfft_ops.launches):
+    all_counters = (scube_ops.launches, fcube_ops.launches, rfft_ops.launches, flash_ops.launches)
+    for counters in all_counters:
         for k in counters:
             counters[k] = 0
-    return lambda: {**scube_ops.launches, **fcube_ops.launches, **rfft_ops.launches}
+    return lambda: {k: n for counters in all_counters for k, n in counters.items()}
+
+
+def bf16_within_one_ulp(got, want, floor: float = 3e-5):
+    """(ok, largest distance in bfloat16 ulps, elements over one ulp, largest
+    magnitude among them).  ok: |got - want| <= one bfloat16 ulp of
+    max(|got|, |want|) + floor at every element; the float32 bar is the floor
+    because an output that cancels to near zero has a bfloat16 ulp far below
+    the float32 rounding of its order-one terms."""
+    import torch
+
+    a, b = got.to(torch.float32), want.to(torch.float32)
+    mag = torch.maximum(a.abs(), b.abs())
+    _, e = torch.frexp(mag)  # mag in [2^(e-1), 2^e): its bfloat16 ulp is 2^(e-8)
+    ulp = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), e - 8), torch.zeros_like(mag))
+    diff = (a - b).abs()
+    over = diff > ulp
+    ulps = torch.where(ulp > 0, diff / ulp, torch.zeros_like(diff))
+    worst = float(mag[over].max()) if bool(over.any()) else 0.0
+    return bool((diff <= ulp + floor).all()), float(ulps.max()), int(over.sum()), worst
+
+
+def causal_attention_flops(b, hq, sq, sk, d) -> int:
+    """Exact FLOPs of suffix-causal attention: query i sees sk - sq + i + 1
+    keys, and each (query, key) pair costs 2d for q.k and 2d for p.v."""
+    pairs = sq * (sk - sq) + sq * (sq + 1) // 2
+    return 4 * b * hq * d * pairs
+
+
+FLASH_CASES = (("prefill", 2048, 2048), ("suffix", 128, 2048), ("ragged", 1030, 1030))
+
+
+def phase_flash(dev, heads=(4, 14, 2, 64), lengths=FLASH_CASES):
+    """The flash-attention kernel against its twin at the LM phase's shapes
+    (``heads`` = (b, hq, hkv, d), qwen2-0.5b's at batch 4); returns the
+    summary record, whose main case is the first: the forward loss's
+    (4, 14, 2048, 64) bfloat16 attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, hq, hkv, d = heads
+    cases = []
+    for label, sq, sk in lengths:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+                       for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+            got = flash_ops.flash_attention(q, k, v)
+            want = attention_ref(q, k, v)
+            torch.cuda.synchronize()
+            err = float(torch.max(torch.abs(got.to(torch.float32) - want.to(torch.float32))))
+            case = {"case": label, "dtype": str(dtype).split(".")[-1], "q": list(q.shape),
+                    "kv": list(k.shape), "max_abs_err": err}
+            if dtype == torch.bfloat16:
+                ok, ulps, n_over, worst = bf16_within_one_ulp(got, want)
+                case.update(max_ulps=ulps, n_over_one_ulp=n_over, largest_value_over_one_ulp=worst)
+                require(ok, f"flash_attention {label} bf16: more than one ulp + 3e-5 from the twin")
+            else:
+                require(err <= 3e-5, f"flash_attention {label} f32: max |kernel - twin| {err} > 3e-5")
+            flops = causal_attention_flops(b, hq, sq, sk, d)
+            n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+            peak = BF16_TENSOR_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+            case.update(
+                flops=flops, bytes=n_bytes,
+                bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ms_fp32_cuda_cores=flops / FP32_FLOP_PER_S * 1e3,
+                bound_ms_bf16_tensor=flops / BF16_TENSOR_FLOP_PER_S * 1e3,
+                bound_ms_bytes=t_bytes * 1e3,
+                ms=cuda_time_ms(lambda: flash_ops.flash_attention(q, k, v)),
+                plain_ms=cuda_time_ms(lambda: attention_ref(q, k, v), reps=5),
+                library_ms=None,
+            )
+            if sq == sk:
+                # top-left causal alignment equals the suffix convention when sq == sk
+                sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+                case["library_ms"] = cuda_time_ms(sdpa)
+                case["library_max_abs_err"] = float(torch.max(torch.abs(
+                    sdpa().to(torch.float32) - want.to(torch.float32))))
+            case["tflops"] = flops / (case["ms"] * 1e-3) / 1e12
+            cases.append(case)
+            del q, k, v, got, want
+    emit("lm", part="kernel", kernel="flash_attention", cases=cases)
+    main = cases[0]
+    return {
+        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:41", "launches": 0,
+        "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"], "bound_ms_fp32_cuda_cores": main["bound_ms_fp32_cuda_cores"],
+    }
+
+
+def phase_lm(dev, record, cfg=None, tokens=(4, 2048), prompts=(4, 600)):
+    """qwen2-0.5b at full width (``cfg`` None): the forward loss of a
+    ``tokens`` batch through the kernel, then ServingEngine prefill and
+    greedy decode of 8 requests with prompt lengths in ``prompts`` on the
+    same weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = cfg or get_config("qwen2-0.5b", attention_impl="pallas")
+    bundle = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = bundle.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {"tokens": torch.randint(0, cfg.vocab, tokens, generator=gen, device=dev)}
+    float(bundle.loss(params, batch))  # warm-up: cuBLAS handles, the kernel's library
+
+    read = reset_launches()
+    t0 = time.perf_counter()
+    loss = float(bundle.loss(params, batch))  # float() waits for the device
+    forward_s = time.perf_counter() - t0
+    counts = read()
+    naive = build_model(dataclasses.replace(cfg, attention_impl="naive"), device=dev)
+    t0 = time.perf_counter()
+    loss_naive = float(naive.loss(params, batch))
+    naive_s = time.perf_counter() - t0
+    rel = abs(loss - loss_naive) / abs(loss_naive)
+    emit("lm", part="loss", config=cfg.name, tokens=list(batch["tokens"].shape), init_seconds=init_s,
+         loss_pallas=loss, loss_naive=loss_naive, rel_diff=rel, forward_seconds=forward_s,
+         naive_forward_seconds=naive_s, launches=counts,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    require(np.isfinite(loss) and np.isfinite(loss_naive), "lm: loss is not finite")
+    require(rel <= 1e-3, f"lm: pallas loss {loss} and naive loss {loss_naive} differ by {rel:.2e} > 1e-3")
+    require(counts["flash_attention"] == cfg.n_layers,
+            f"lm: {counts['flash_attention']} flash_attention launches, want one per layer ({cfg.n_layers})")
+    record["launches"] = counts["flash_attention"]
+    record["launches_per_forward"] = counts["flash_attention"]
+    profile_lm(bundle, params, batch)
+
+    # ServingEngine: 8 requests, prompts of 4-600 tokens (prefill takes the
+    # blockwise branch), 16 new tokens each, 4 per batch
+    rng = np.random.default_rng(0)
+    lengths = [int(n) for n in rng.integers(prompts[0], prompts[1] + 1, 8)]
+    requests = [rng.integers(0, cfg.vocab, n) for n in lengths]
+    served = serve_and_check(cfg, params, requests, dev)
+    require(all(0 <= t < cfg.vocab for r in served["done"] for t in r["tokens"]), "serve: token out of vocab")
+    # bf16 rounds differently on every path: the decode logits may differ
+    # from a cache-less forward by 2e-2 more than two cache-less forwards of
+    # the same prefix (flash kernel and naive attention) differ from each other
+    bar = 2e-2 + served["floor"]
+    # float32 at full width, one batch: there the cache logic is held to 1e-4
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = build_model(cfg32, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    served32 = serve_and_check(cfg32, params32, requests[:4], dev)
+    del params32
+    emit("lm", part="serve", requests=len(requests), prompt_lengths=lengths, new_tokens=served["tokens"],
+         seconds=served["seconds"], tokens_per_s=served["tokens"] / served["seconds"],
+         prefill_seconds=served["prefill_seconds"], decode_seconds=served["decode_seconds"],
+         decode_vs_cacheless_max_abs=served["diff"], cacheless_flash_vs_naive_max_abs=served["floor"],
+         bar=bar, logit_scale=served["scale"], float32_decode_vs_cacheless_max_abs=served32["diff"],
+         float32_cacheless_flash_vs_naive_max_abs=served32["floor"])
+    require(served["diff"] <= bar, f"serve: bf16 decode logits differ from a cache-less forward by "
+            f"{served['diff']} > {bar} (2e-2 + the flash-vs-naive floor)")
+    require(served32["diff"] <= 1e-4, f"serve: float32 decode logits differ from a cache-less forward "
+            f"by {served32['diff']} > 1e-4")
+
+
+def profile_lm(bundle, params, batch):
+    """Where the device time goes: torch.profiler over one forward loss and
+    over 3 decode steps after a 380-token prefill of the batch's rows (4 at
+    full size), after the counted run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        # kernels only (device-side events), as the profiler's own table sums them
+        device = {e.key: e.self_device_time_total / 1e3 for e in events
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                  and e.self_device_time_total > 0}
+        busy = sum(device.values())
+        top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
+        launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+        return {"wall_ms": wall * 1e3, "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / (wall * 1e3)),
+                "kernel_launches": launches, "top_device_ms": [[k[:60], v] for k, v in top],
+                "flash_kernel_ms": sum(v for k, v in device.items() if "flash_fwd_kernel" in k)}
+
+    forward = traced(lambda: float(bundle.loss(params, batch)))
+    tokens = batch["tokens"][:, :380]
+    cache = bundle.init_cache(tokens.shape[0], tokens.shape[1] + 3)
+    _, cache = bundle.prefill(params, {"tokens": tokens}, cache)
+
+    def decode3():
+        nonlocal cache
+        for _ in range(3):
+            _, cache = bundle.decode(params, tokens[:, -1:], cache)
+
+    decode = traced(decode3)
+    emit("lm", part="profile", forward_loss=forward, decode_3_steps=decode)
+
+
+def serve_and_check(cfg, params, requests, dev):
+    """Serve ``requests`` (16 new tokens each, 4 per batch) on one engine and
+    hold the first request's last decode logits against cache-less forwards
+    of its prefix, with the kernel (``diff``) and with naive attention
+    (``floor``: how far two correct forwards are apart)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import _logits
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    eng = ServingEngine(cfg, ServeConfig(max_batch=4, max_len=1024), params=params, device=dev)
+    for prompt in requests:
+        eng.submit(prompt, max_new_tokens=16)
+    first = eng._make_batch(eng.queue[: eng.serve.max_batch])["tokens"][0]
+    seconds = {"prefill": 0.0, "decode": 0.0}
+    decode_logits = []
+
+    def timed(name, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = fn(*args)
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - t
+            if name == "decode" and len(decode_logits) < 15:  # the first batch's 15 decode steps
+                decode_logits.append(logits[0, -1].clone())
+            return logits, cache
+        return call
+
+    eng._prefill, eng._decode = timed("prefill", eng._prefill), timed("decode", eng._decode)
+    t0 = time.perf_counter()
+    done = []
+    while eng.queue:
+        done += eng.step()
+    serve_s = time.perf_counter() - t0
+    require(len(done) == len(requests) and all(len(r["tokens"]) == 16 for r in done),
+            "serve: wrong completions")
+    prefix = torch.cat([first, torch.tensor(done[0]["tokens"][:15], device=dev)])[None]
+    with torch.no_grad():
+        h, _ = params(prefix, cfg)
+        want = _logits(params, h[:, -1:], cfg)[0, -1].float()
+        h, _ = params(prefix, dataclasses.replace(cfg, attention_impl="naive"))
+        other = _logits(params, h[:, -1:], cfg)[0, -1].float()
+    return {"done": done, "tokens": sum(len(r["tokens"]) for r in done), "seconds": serve_s,
+            "prefill_seconds": seconds["prefill"], "decode_seconds": seconds["decode"],
+            "diff": float(torch.max(torch.abs(decode_logits[-1].float() - want))),
+            "floor": float(torch.max(torch.abs(want - other))),
+            "scale": float(want[: cfg.vocab].abs().max())}
 
 
 def recheck(x, dec, blob):
@@ -361,8 +635,12 @@ def main() -> int:
         require(got.dtype == want.dtype and np.array_equal(got, want), f"golden {blob_name} differs")
         emit("golden", blob=blob_name, bitwise=True)
 
-    # 8: summary
-    kernels = [records[k] for k in ("scube", "fcube", "rfft_fwd_epilogue", "unpack_sclip")]
+    # 8: the qwen2-0.5b dense LM at full width, through the flash kernel
+    records["flash_attention"] = phase_flash(dev)
+    phase_lm(dev, records["flash_attention"])
+
+    # 9: summary
+    kernels = [records[k] for k in ("scube", "fcube", "rfft_fwd_epilogue", "unpack_sclip", "flash_attention")]
     for r in kernels:
         require(r["launches"] > 0, f"{r['name']} has no launches on the main path")
     emit("summary", seconds=time.perf_counter() - t_start,

@@ -1,1 +1,133 @@
-"""Field configurations of the paper's experiments (see :mod:`.ffcz_fields`)."""
+"""Architecture registry of the LM framework, and the paper's field configs.
+
+``ArchConfig`` and ``CompressionConfig`` are the reference's field for field
+(names and defaults, and the ``vocab_padded``/``resolved_head_dim``
+properties the ported models read), so one config means the same thing to
+both packages.  ``get_config(name)`` returns an arch's full published config and
+``get_smoke_config(name)`` its reduced same-family config; only the archs
+the port has brought up are known to them (the others raise
+``NotImplementedError``).  The field configurations of the paper's
+experiments are in :mod:`.ffcz_fields`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional
+
+ARCH_IDS = (
+    "qwen2-0.5b",
+    "qwen2-7b",
+    "granite-3-2b",
+    "minitron-4b",
+    "granite-moe-3b-a800m",
+    "llama4-maverick-400b-a17b",
+    "mamba2-2.7b",
+    "zamba2-7b",
+    "llava-next-mistral-7b",
+    "whisper-tiny",
+)
+
+#: the archs whose config module the port has
+PORTED_ARCH_IDS = ("qwen2-0.5b",)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressionConfig:
+    """FFCz integration knobs."""
+
+    grad_compression: bool = False
+    grad_E_rel: float = 1e-2
+    grad_Delta_rel: float = 1e-2
+    grad_block: int = 4096
+    grad_bits: int = 8
+    checkpoint_compression: bool = False
+    ckpt_E_rel: float = 1e-4
+    ckpt_Delta_rel: float = 1e-4
+    kv_cache_compression: bool = False
+    kv_E_rel: float = 1e-2
+    kv_Delta_rel: float = 1e-2
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None  # default d_model // n_heads
+    qkv_bias: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1  # apply MoE every k-th layer (others dense)
+    shared_expert: bool = False
+    capacity_factor: float = 1.25
+    # --- SSM (Mamba2/SSD) ---
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_ngroups: int = 1
+    ssm_chunk: int = 256
+    conv_kernel: int = 4
+    # --- hybrid (Zamba2-style shared attention) ---
+    attn_every: int = 0  # >0: weight-shared attention block every k core layers
+    # --- encoder-decoder (Whisper) ---
+    encoder_layers: int = 0
+    encoder_seq: int = 0  # stub frontend sequence length (audio frames)
+    # --- VLM stub ---
+    vision_tokens: int = 0
+    vision_dim: int = 0
+    # --- common ---
+    pos_type: str = "rope"  # rope | sinusoidal | none
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    # --- runtime ---
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    attention_impl: str = "xla_flash"  # xla_flash | pallas | naive
+    remat: str = "dots"  # none | dots | full (a training knob; the forward ignores it)
+    causal_scheduling: bool = True  # skip fully-masked causal kv blocks (perf)
+    # mesh axes ((name, size), ...); the port runs on one device and raises
+    # NotImplementedError for a non-empty mesh
+    mesh_axes: tuple = ()
+    shard_attn_activations: bool = True
+    compression: CompressionConfig = dataclasses.field(default_factory=CompressionConfig)
+
+    @property
+    def vocab_padded(self) -> int:
+        """Vocab padded to a multiple of 128; logits of padded ids are masked."""
+        return ((self.vocab + 127) // 128) * 128
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+
+_MODULES = {arch: arch.replace("-", "_").replace(".", "_") for arch in ARCH_IDS}
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise ValueError(f"unknown arch {name!r}; have {sorted(_MODULES)}")
+    if name not in PORTED_ARCH_IDS:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ROADMAP.md Queue 1, slice 6); ported: {PORTED_ARCH_IDS}"
+        )
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str, **overrides) -> ArchConfig:
+    cfg = _module(name).CONFIG
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def get_smoke_config(name: str, **overrides) -> ArchConfig:
+    cfg = _module(name).SMOKE
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg

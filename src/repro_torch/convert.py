@@ -1,12 +1,14 @@
-"""Carry the reference package's PLAN and EXECUTE state into the port.
+"""Carry the reference package's state into the port.
 
-FFCz has no weights: the state that crosses between the two packages is the
-whole-field plan and the loop result.  Both functions take the reference
-dataclass's fields as plain numpy arrays and Python scalars (for example
+For the codec, the state that crosses between the two packages is the
+whole-field plan and the loop result.  ``plan_from_reference`` and
+``result_from_reference`` take the reference dataclass's fields as plain
+numpy arrays and Python scalars (for example
 ``{k: np.asarray(v) for k, v in dataclasses.asdict(ref_plan).items()}``,
 with ``None`` kept as ``None``) and build the port's dataclass, so one
 package's PLAN can feed the other's EXECUTE and one's result the other's
-ENCODE.
+ENCODE.  For the LM framework, ``lm_params_from_reference`` turns a
+reference parameter tree into the port model's ``state_dict``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.engine import FieldPlan, FieldResult
 
@@ -63,3 +66,46 @@ def result_from_reference(d: dict) -> FieldResult:
         converged=bool(d["converged"]),
         final_violations=int(d["final_violations"]),
     )
+
+
+def _tensor(a) -> torch.Tensor:
+    """A torch tensor with ``a``'s values and dtype (bfloat16 kept bitwise)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 has no torch.from_numpy
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def lm_params_from_reference(params_np: dict, cfg) -> dict:
+    """The port's ``DenseLM`` state dict from a reference dense-LM parameter tree.
+
+    ``params_np`` is the tree ``repro.models.model.build_model(cfg).init``
+    returns, with numpy leaves (``jax.tree.map(np.asarray, params)``); its
+    ``layers`` subtree is stacked on a leading layer axis (``stack_init``),
+    which becomes one ``layers.<i>.`` prefix per layer.  Values and dtypes
+    are kept exactly.
+    """
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported (ROADMAP.md Queue 1, slice 6)")
+    out = {}
+
+    def walk(tree, prefix, layer=None):
+        for name, v in tree.items():
+            key = f"{prefix}{name}"
+            if isinstance(v, dict):
+                walk(v, key + ".", layer)
+            else:
+                out[key] = _tensor(v if layer is None else np.asarray(v)[layer])
+
+    walk({k: v for k, v in params_np.items() if k != "layers"}, "")
+    n = {np.asarray(v).shape[0] for v in _leaves(params_np["layers"])}
+    if n != {cfg.n_layers}:
+        raise ValueError(f"layer axis {sorted(n)} does not match n_layers={cfg.n_layers}")
+    for i in range(cfg.n_layers):
+        walk(params_np["layers"], f"layers.{i}.", layer=i)
+    return out
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))

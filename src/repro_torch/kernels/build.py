@@ -39,8 +39,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-#: one shared library per source; every source includes csrc/common.cuh
-SOURCES = ("scube", "fcube", "rfft")
+#: one shared library per source (the POCS-loop sources include csrc/common.cuh)
+SOURCES = ("scube", "fcube", "rfft", "flash_attention")
 
 _P, _F, _I, _L = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
 #: argtypes of each library's launchers (pointers and the stream as c_void_p)
@@ -51,6 +51,9 @@ SIGNATURES = {
         "rfft_fwd_epilogue_launch": (
             _P, _P, _F, _I, _P, _F, _F, _I, _L, _L, _L, _L, _P, _P, _P, _P, _P,
         )
+    },
+    "flash_attention": {
+        "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P)
     },
 }
 

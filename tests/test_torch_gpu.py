@@ -1,4 +1,12 @@
-"""The port's CUDA kernels on the card: each against its plain twin, bitwise.
+"""The port's CUDA kernels on the card, each against its plain twin.
+
+The POCS-loop kernels must match bitwise.  The flash-attention kernel sums
+in another order than the twin's materialised softmax: in float32 it must
+agree within atol 3e-5; in bfloat16 within one bfloat16 ulp at each
+element's magnitude, with the float32 bar as a floor.  (Without the floor no
+pair of correct float32 algorithms would pass: an output that cancels to
+~1e-8 has a bfloat16 ulp near 1e-10, far below float32 rounding of its
+order-one terms.)
 
 Every test is marked ``gpu`` and skips when no CUDA device is present (the
 kernels are CUDA C++ with no CPU mode).  The file imports no JAX, so it runs
@@ -14,6 +22,8 @@ import torch
 from repro_torch.compressors import get_compressor
 from repro_torch.core.ffcz import FFCz, FFCzConfig
 from repro_torch.kernels.fcube import ops as t_fcube
+from repro_torch.kernels.flash_attention import ops as t_flash
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rfft import ops as t_rfft
 from repro_torch.kernels.scube import ops as t_scube
 
@@ -99,3 +109,70 @@ def test_compress_on_the_card_holds_bounds(shape):
     assert np.abs(eps).max() <= blob.E
     d = np.fft.rfftn(eps)
     assert max(np.abs(d.real).max(), np.abs(d.imag).max()) <= blob.Delta_scalar
+
+
+def _bf16_within_one_ulp(a, b, floor=3e-5):
+    """|a - b| <= one bfloat16 ulp of max(|a|, |b|) + floor, elementwise."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    mag = torch.maximum(a.abs(), b.abs())
+    _, e = torch.frexp(mag)  # mag in [2^(e-1), 2^e): its bfloat16 ulp is 2^(e-8)
+    ulp = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), e - 8), torch.zeros_like(mag))
+    return bool(((a - b).abs() <= ulp + floor).all())
+
+
+# (b, hq, hkv, sq, sk): GQA groups 1, 2 and 7, ragged lengths, suffix queries
+FLASH_CASES = [(1, 4, 4, 8, 8), (2, 4, 2, 37, 37), (1, 14, 2, 130, 130), (2, 2, 1, 16, 300),
+               (1, 7, 1, 1030, 1030), (1, 2, 2, 1, 77)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_matches_twin(case, d, dtype):
+    dev = _cuda()
+    b, hq, hkv, sq, sk = case
+    rng = np.random.default_rng(sq * 1000 + sk)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+               for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    before = t_flash.launches["flash_attention"]
+    got = t_flash.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert t_flash.launches["flash_attention"] == before + 1
+    want = attention_ref(q, k, v)
+    assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.float32:
+        assert float(torch.max(torch.abs(got - want))) <= 3e-5
+    else:
+        assert _bf16_within_one_ulp(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_non_causal_matches_twin(dtype):
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+               for s in ((2, 4, 37, 64), (2, 2, 100, 64), (2, 2, 100, 64)))
+    got = t_flash.flash_attention(q, k, v, causal=False, scale=0.2)
+    want = attention_ref(q, k, v, causal=False, scale=0.2)
+    if dtype == torch.float32:
+        assert float(torch.max(torch.abs(got - want))) <= 3e-5
+    else:
+        assert _bf16_within_one_ulp(got, want)
+
+
+@pytest.mark.gpu
+def test_flash_attention_rejects_what_the_kernel_does_not_take():
+    dev = _cuda()
+    q = torch.zeros((1, 2, 8, 64), device=dev)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        t_flash.flash_attention(q[..., :32].contiguous(), q[..., :32].contiguous(), q[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        t_flash.flash_attention(q.transpose(1, 2), q, q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        t_flash.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="sq <= sk"):
+        t_flash.flash_attention(q, q[:, :, :4], q[:, :, :4])
+    with pytest.raises(NotImplementedError, match="backward"):
+        t_flash.flash_attention(q.requires_grad_(), q, q)

@@ -19,6 +19,12 @@ JSON line each (or more):
   5 odd       the same field cropped to 256x256x255: kernels 1 and 2 launch
   6 pointwise pspec_rel (pointwise Delta) and an E_roi mask (pointwise E)
   7 golden    the three blobs in tests/data decode to their stored outputs
+  quantize    repro_torch.kernels.quantize_edits on phase 4's 256^3 spatial
+              edits (m = 16), scalar and pointwise bound: bitwise vs its twin
+  block_transform  repro_torch.kernels.block_transform_quantize on phase 4's
+              field blockified as zfplike does (262,144 x 64, DCT-4 Kronecker
+              matrix, q = 2E / gain^3 at E_rel = 1e-3) and at B = 128:
+              bitwise vs its twin; the TF32-off matmul + round as library
   8 lm        flash attention vs its twin (float32 atol 3e-5; bfloat16 one
               ulp at each element's magnitude, 3e-5 floor) with kernel, twin
               and scaled_dot_product_attention times; the forward loss of
@@ -26,7 +32,14 @@ JSON line each (or more):
               naive impl within 1e-3); ServingEngine prefill + greedy decode
               of 8 requests, decode logits against a cache-less forward
               (bf16: within 2e-2 of the flash-vs-naive floor; float32, one
-              batch: within 1e-4)
+              batch: within 1e-4); the same 8 requests again with KV-cache
+              compression (tokens/s, compress seconds, tokens that differ)
+  pencils     the per-pencil kernels vs their twins at the KV shapes, then
+              compress_cache on the qwen2-0.5b cache of 4x2048 tokens (49,152
+              pencils of 1024) with the batched engine, fft_impl "pallas"
+              (kernels 3 and 4 per pencil) and "xla", and one correct call
+              with block 1023 (kernels 1 and 2 per pencil): every pencil's
+              bounds rechecked in float64 on the host
   9 summary   the kernels line, the nvidia-smi line, then {"ok": true, ...}
 
 Any failure exits non-zero before the last line.  The script needs a CUDA
@@ -246,12 +259,15 @@ def phase_kernels(dev):
 
 def reset_launches():
     """Set every kernel's launch count to 0; returns a reader of the counts."""
+    from repro_torch.kernels.block_transform import ops as bt_ops
     from repro_torch.kernels.fcube import ops as fcube_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.quantize import ops as quantize_ops
     from repro_torch.kernels.rfft import ops as rfft_ops
     from repro_torch.kernels.scube import ops as scube_ops
 
-    all_counters = (scube_ops.launches, fcube_ops.launches, rfft_ops.launches, flash_ops.launches)
+    all_counters = (scube_ops.launches, fcube_ops.launches, rfft_ops.launches, flash_ops.launches,
+                    quantize_ops.launches, bt_ops.launches)
     for counters in all_counters:
         for k in counters:
             counters[k] = 0
@@ -423,6 +439,22 @@ def phase_lm(dev, record, cfg=None, tokens=(4, 2048), prompts=(4, 600)):
     require(served32["diff"] <= 1e-4, f"serve: float32 decode logits differ from a cache-less forward "
             f"by {served32['diff']} > 1e-4")
 
+    # the same 8 requests with KV-cache compression after each prefill (the
+    # default engine: batched, fft_impl "xla"); reported, not gated — the
+    # bounds it keeps are rechecked in phase pencils
+    cfg_kv = dataclasses.replace(cfg, compression=dataclasses.replace(
+        cfg.compression, kv_cache_compression=True))
+    served_kv = serve_and_check(cfg_kv, params, requests, dev, check=False)
+    differ = sum(a != b for r0, r1 in zip(served["done"], served_kv["done"])
+                 for a, b in zip(r0["tokens"], r1["tokens"]))
+    emit("lm", part="serve_kv_compression", requests=len(requests), new_tokens=served_kv["tokens"],
+         seconds=served_kv["seconds"], tokens_per_s=served_kv["tokens"] / served_kv["seconds"],
+         prefill_seconds=served_kv["prefill_seconds"], compress_seconds=served_kv["compress_seconds"],
+         decode_seconds=served_kv["decode_seconds"], tokens_differing_from_uncompressed=differ)
+    require(all(0 <= t < cfg.vocab for r in served_kv["done"] for t in r["tokens"]),
+            "serve with KV compression: token out of vocab")
+    return cfg, params
+
 
 def profile_lm(bundle, params, batch):
     """Where the device time goes: torch.profiler over one forward loss and
@@ -465,56 +497,378 @@ def profile_lm(bundle, params, batch):
     emit("lm", part="profile", forward_loss=forward, decode_3_steps=decode)
 
 
-def serve_and_check(cfg, params, requests, dev):
-    """Serve ``requests`` (16 new tokens each, 4 per batch) on one engine and
-    hold the first request's last decode logits against cache-less forwards
-    of its prefix, with the kernel (``diff``) and with naive attention
-    (``floor``: how far two correct forwards are apart)."""
+def serve_and_check(cfg, params, requests, dev, check=True):
+    """Serve ``requests`` (16 new tokens each, 4 per batch) on one engine and,
+    with ``check``, hold the first request's last decode logits against
+    cache-less forwards of its prefix, with the kernel (``diff``) and with
+    naive attention (``floor``: how far two correct forwards are apart).
+    Prefill, KV compression and decode are timed apart."""
     import dataclasses
 
     import torch
 
     from repro_torch.models.model import _logits
+    from repro_torch.serving import engine as serving_engine
     from repro_torch.serving.engine import ServeConfig, ServingEngine
 
     eng = ServingEngine(cfg, ServeConfig(max_batch=4, max_len=1024), params=params, device=dev)
     for prompt in requests:
         eng.submit(prompt, max_new_tokens=16)
     first = eng._make_batch(eng.queue[: eng.serve.max_batch])["tokens"][0]
-    seconds = {"prefill": 0.0, "decode": 0.0}
+    seconds = {"prefill": 0.0, "decode": 0.0, "compress": 0.0}
     decode_logits = []
 
     def timed(name, fn):
-        def call(*args):
+        def call(*args, **kwargs):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            logits, cache = fn(*args)
+            out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             seconds[name] += time.perf_counter() - t
             if name == "decode" and len(decode_logits) < 15:  # the first batch's 15 decode steps
-                decode_logits.append(logits[0, -1].clone())
-            return logits, cache
+                decode_logits.append(out[0][0, -1].clone())
+            return out
         return call
 
     eng._prefill, eng._decode = timed("prefill", eng._prefill), timed("decode", eng._decode)
+    compress = serving_engine.compress_cache
+    serving_engine.compress_cache = timed("compress", compress)
     t0 = time.perf_counter()
     done = []
-    while eng.queue:
-        done += eng.step()
+    try:
+        while eng.queue:
+            done += eng.step()
+    finally:
+        serving_engine.compress_cache = compress
     serve_s = time.perf_counter() - t0
     require(len(done) == len(requests) and all(len(r["tokens"]) == 16 for r in done),
             "serve: wrong completions")
+    out = {"done": done, "tokens": sum(len(r["tokens"]) for r in done), "seconds": serve_s,
+           "prefill_seconds": seconds["prefill"], "decode_seconds": seconds["decode"],
+           "compress_seconds": seconds["compress"]}
+    if not check:
+        return out
     prefix = torch.cat([first, torch.tensor(done[0]["tokens"][:15], device=dev)])[None]
     with torch.no_grad():
         h, _ = params(prefix, cfg)
         want = _logits(params, h[:, -1:], cfg)[0, -1].float()
         h, _ = params(prefix, dataclasses.replace(cfg, attention_impl="naive"))
         other = _logits(params, h[:, -1:], cfg)[0, -1].float()
-    return {"done": done, "tokens": sum(len(r["tokens"]) for r in done), "seconds": serve_s,
-            "prefill_seconds": seconds["prefill"], "decode_seconds": seconds["decode"],
+    return {**out,
             "diff": float(torch.max(torch.abs(decode_logits[-1].float() - want))),
             "floor": float(torch.max(torch.abs(want - other))),
             "scale": float(want[: cfg.vocab].abs().max())}
+
+
+# rows of the summary's kernels line: the seven TPU kernels, rows 1-4 twice
+# (whole field and per pencil)
+KERNEL_ROWS = ("scube", "fcube", "rfft_fwd_epilogue", "unpack_sclip",
+               "scube_rows", "fcube_rows", "rfft_fwd_epilogue_rows", "unpack_sclip_rows",
+               "quantize", "block_transform", "flash_attention")
+
+
+def bound_case(case, bytes_moved, flops, peak=FP32_FLOP_PER_S):
+    """Add the least time the card could take: bytes (each input read once,
+    each output written once) over HBM bandwidth, or operations over the
+    peak of their type."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / peak
+    case.update(bytes=bytes_moved, flops=flops, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return case
+
+
+def kernel_record(name, source, replaces, cases, launches, library_ms=None):
+    """A summary record from a phase's cases (the first is the main one)."""
+    main = cases[0]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": library_ms}
+
+
+def phase_quantize(dev, spat, E, m=16):
+    """QuantizeEdits through ``repro_torch.kernels.quantize_edits`` on the
+    main path's spatial edits (float64 on the host, cast to float32 as ENCODE
+    hands them over), with the plan's scalar E and with a pointwise bound
+    (E times a seeded factor in [0.5, 1.5], an eighth of it 0): both driven
+    once with the counts zeroed, then held bitwise against the twin."""
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.kernels.quantize.ref import quantize_edits_ref
+
+    v = torch.from_numpy(np.asarray(spat, np.float32)).to(dev)
+    rng = np.random.default_rng(0)
+    grid = (rng.uniform(0.5, 1.5, v.shape) * E).astype(np.float32)
+    grid.reshape(-1)[::8] = 0.0
+    bounds = (("scalar", float(E)), ("pointwise", torch.from_numpy(grid).to(dev)))
+    read = reset_launches()
+    outs = [kernels.quantize_edits(v, b, m=m) for _, b in bounds]
+    torch.cuda.synchronize()
+    launches = read()["quantize"]
+    cases = []
+    for (label, b), got in zip(bounds, outs):
+        want = quantize_edits_ref(v, b, m)
+        require(all(same(g, w) for g, w in zip(got, want)), f"quantize {label}: kernel != twin")
+        n = v.numel()
+        cases.append(bound_case({
+            "bound": label, "shape": list(v.shape), "m": m, "bitwise": True, "max_abs_err": 0.0,
+            "nonzero_codes": int(got[1].sum()), "max_abs_code": int(torch.abs(got[0]).max()),
+            "ms": cuda_time_ms(lambda: kernels.quantize_edits(v, b, m=m)),
+            "plain_ms": cuda_time_ms(lambda: quantize_edits_ref(v, b, m)),
+        }, bytes_moved=4 * n + (4 * n if label == "pointwise" else 4) + 8 * n, flops=3 * n))
+    emit("quantize", launches=launches, cases=cases)
+    require(launches == len(bounds), f"quantize: {launches} launches, want {len(bounds)}")
+    return kernel_record("quantize", "src/repro_torch/csrc/quantize.cu",
+                         "src/repro/kernels/quantize/kernel.py:19", cases, launches)
+
+
+def phase_block_transform(dev, x, E_rel=1e-3):
+    """The zfplike block transform through
+    ``repro_torch.kernels.block_transform_quantize``: ``x`` padded and
+    blockified as ``compressors/zfplike.py`` does (4^3 blocks, B = 64), the
+    DCT-4 matrix Kronecker-expanded, q = 2E / gain^3; then B = 128 at the same
+    row count (each block beside its neighbour, the matrix paired with a
+    2-point Haar step).  Kernel vs twin bitwise; the TF32-off matmul + round
+    as library, with the count of codes that differ from it."""
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.compressors.zfplike import ZFPLikeCompressor
+    from repro_torch.kernels.block_transform.ref import block_transform_quantize_ref
+
+    zfp = ZFPLikeCompressor()
+    padded, _ = zfp._pad(np.asarray(x, np.float32))
+    b64 = torch.from_numpy(np.ascontiguousarray(zfp._blockify(padded).reshape(-1, 64))).to(dev)
+    m1 = zfp._fwd
+    m64 = np.kron(m1, np.kron(m1, m1))
+    m128 = np.kron(np.array([[1.0, 1.0], [1.0, -1.0]]) / np.sqrt(2.0), m64)
+    E = E_rel * float(np.ptp(x))
+    q = 2.0 * E / zfp._gain1**3
+    runs = (("zfplike 4^3", b64, m64), ("B=128", torch.cat([b64, torch.roll(b64, 1, 0)], 1).contiguous(), m128))
+    runs = [(label, blocks, torch.from_numpy(mat.astype(np.float32)).to(dev)) for label, blocks, mat in runs]
+    read = reset_launches()
+    outs = [kernels.block_transform_quantize(blocks, mat, q) for _, blocks, mat in runs]
+    torch.cuda.synchronize()
+    launches = read()["block_transform"]
+    qt = torch.tensor(q, dtype=torch.float32, device=dev)
+
+    def library(blocks, mat):
+        return torch.round(torch.matmul(blocks, mat.T) / qt).to(torch.int32)
+
+    cases = []
+    for (label, blocks, mat), got in zip(runs, outs):
+        want = block_transform_quantize_ref(blocks, mat, q)
+        require(same(got, want), f"block_transform {label}: kernel != twin")
+        lib_diff = (got.to(torch.int64) - library(blocks, mat).to(torch.int64)).abs()
+        nb, B = blocks.shape
+        cases.append(bound_case({
+            "case": label, "shape": [nb, B], "q": q, "bitwise": True, "max_abs_err": 0.0,
+            "codes_differing_from_library": int((lib_diff > 0).sum()),
+            "max_abs_diff_from_library": int(lib_diff.max()),
+            "ms": cuda_time_ms(lambda: kernels.block_transform_quantize(blocks, mat, q)),
+            "plain_ms": cuda_time_ms(lambda: block_transform_quantize_ref(blocks, mat, q), reps=3, warmup=1),
+            "library_ms": cuda_time_ms(lambda: library(blocks, mat)),
+        }, bytes_moved=4 * nb * B + 4 * B * B + 4 * nb * B, flops=2 * nb * B * B))
+    emit("block_transform", launches=launches, cases=cases)
+    require(launches == len(runs), f"block_transform: {launches} launches, want {len(runs)}")
+    return kernel_record("block_transform", "src/repro_torch/csrc/block_transform.cu",
+                         "src/repro/kernels/block_transform/kernel.py:23", cases, launches,
+                         library_ms=cases[0]["library_ms"])
+
+
+def phase_pencil_kernels(dev, rows=49152, block=1024):
+    """The per-pencil modes of kernels 1-4 against their twins at the KV
+    shapes: ``rows`` pencils of ``block`` (even: kernels 3, 4) and of
+    ``block - 1`` (odd: kernels 1, 2), one bound per row."""
+    import torch
+
+    from repro_torch.kernels.fcube import ops as fcube_ops
+    from repro_torch.kernels.rfft import ops as rfft_ops
+    from repro_torch.kernels.scube import ops as scube_ops
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tol = 1e-5
+    odd = block - 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    def per_row(scale):
+        return (0.5 + torch.rand((rows, 1), generator=gen, device=dev)) * scale
+
+    records = {}
+
+    def add(name, source, replaces, case, n_bytes, flops):
+        case = bound_case(case, n_bytes, flops)
+        emit("pencils", part="kernel", kernel=name, case=case)
+        records[name] = kernel_record(name, source, replaces, [case], 0)
+
+    x = randn(rows, odd)
+    E = per_row(1.0)
+    got, want = scube_ops.project_scube_fused(x, E), scube_ops.project_scube_plain(x, E)
+    require(all(same(g, w) for g, w in zip(got, want)), "scube per pencil: kernel != twin")
+    n = x.numel()
+    add("scube_rows", "src/repro_torch/csrc/scube.cu", "src/repro/kernels/scube/kernel.py:19",
+        {"shape": [rows, odd], "bitwise": True, "max_abs_err": 0.0,
+         "ms": cuda_time_ms(lambda: scube_ops.project_scube_fused(x, E)),
+         "plain_ms": cuda_time_ms(lambda: scube_ops.project_scube_plain(x, E))},
+        4 * n + 4 * rows + 8 * n, 3 * n)
+
+    delta = torch.fft.rfft(randn(rows, odd), dim=-1).contiguous()
+    D = per_row(float(delta.real.std()))
+    kw = dict(n_last=odd, check_tol=tol, per_row=True)
+    got, want = fcube_ops.project_fcube_fused(delta, D, **kw), fcube_ops.project_fcube_plain(delta, D, **kw)
+    require(all(same(g, w) for g, w in zip(got, want)), "fcube per pencil: kernel != twin")
+    n = delta.numel()
+    add("fcube_rows", "src/repro_torch/csrc/fcube.cu", "src/repro/kernels/fcube/kernel.py:36",
+        {"shape": list(delta.shape), "bitwise": True, "max_abs_err": 0.0, "violations": int(got[2].sum()),
+         "ms": cuda_time_ms(lambda: fcube_ops.project_fcube_fused(delta, D, **kw)),
+         "plain_ms": cuda_time_ms(lambda: fcube_ops.project_fcube_plain(delta, D, **kw))},
+        8 * n + 4 * rows + 16 * n + 4 * rows, 12 * n)
+
+    delta = torch.fft.rfft(randn(rows, block), dim=-1).contiguous()
+    D = per_row(float(delta.real.std()))
+    kw = dict(weighted=True, check_tol=tol, per_row=True)
+    got, want = rfft_ops.fwd_epilogue_fused(delta, D, **kw), rfft_ops.fwd_epilogue_plain(delta, D, **kw)
+    require(all(same(g, w) for g, w in zip(got, want)), "rfft_fwd_epilogue per pencil: kernel != twin")
+    n, h = delta.numel(), delta.shape[-1]
+    nz = rows * (h - 1)
+    add("rfft_fwd_epilogue_rows", "src/repro_torch/csrc/rfft.cu", "src/repro/kernels/rfft/kernel.py:50",
+        {"shape": list(delta.shape), "bitwise": True, "max_abs_err": 0.0, "violations": int(got[3].sum()),
+         "ms": cuda_time_ms(lambda: rfft_ops.fwd_epilogue_fused(delta, D, **kw)),
+         "plain_ms": cuda_time_ms(lambda: rfft_ops.fwd_epilogue_plain(delta, D, **kw))},
+        8 * n + 4 * rows + 8 * h + 16 * n + 8 * nz + 4 * rows, 12 * n + 20 * nz)
+
+    z = torch.fft.ifft(got[2], dim=-1).contiguous()
+    E = per_row(float(z.real.std()))
+    got = rfft_ops.unpack_sclip_fused(z, E, (rows, block))
+    want = rfft_ops.unpack_sclip_plain(z, E, (rows, block))
+    require(all(same(g, w) for g, w in zip(got, want)), "unpack_sclip per pencil: kernel != twin")
+    n = 2 * z.numel()
+    add("unpack_sclip_rows", "src/repro_torch/csrc/scube.cu", "src/repro/kernels/rfft/kernel.py:151",
+        {"shape": [rows, block], "bitwise": True, "max_abs_err": 0.0,
+         "ms": cuda_time_ms(lambda: rfft_ops.unpack_sclip_fused(z, E, (rows, block))),
+         "plain_ms": cuda_time_ms(lambda: rfft_ops.unpack_sclip_plain(z, E, (rows, block)))},
+        4 * n + 4 * rows + 8 * n, 3 * n)
+    return records
+
+
+def recheck_pencils(errs, Es, Ds, corrected, block):
+    """Float64 host recheck of a ``correct`` call's corrected errors: every
+    value within its tensor's E (exactly: the loop's last s-clip is a clip to
+    the float32 E), and every full pencil's spectrum within Delta * (1 + 1e-5)
+    + tau — the loop's float32 convergence test plus tau = 5 * 2^-24 *
+    log2(N) * sqrt(N) * ||pencil||_2, a bound on the float32 FFT's rounding
+    (Higham, Accuracy and Stability of Numerical Algorithms, Thm 24.2).
+    Returns (worst |x| / E, worst spectrum / Delta)."""
+    import numpy as np
+
+    worst_s = worst_f = 0.0
+    for err, E, D, c in zip(errs, Es, Ds, corrected):
+        E, D = float(E), float(D)
+        x = c.detach().cpu().numpy().astype(np.float64).reshape(-1)
+        worst_s = max(worst_s, float(np.abs(x).max()) / E)
+        require(float(np.abs(x).max()) <= E, f"pencils: a corrected error exceeds E={E}")
+        full = x[: x.size // block * block].reshape(-1, block)
+        spec = np.fft.rfft(full, axis=-1)
+        mag = np.maximum(np.abs(spec.real), np.abs(spec.imag)).max(axis=1)
+        tau = 5 * 2.0**-24 * np.log2(block) * np.sqrt(block) * np.sqrt((full * full).sum(axis=1))
+        worst_f = max(worst_f, float((mag / D).max()))
+        require(bool(np.all(mag <= D * (1 + 1e-5) + tau)), f"pencils: a pencil's spectrum exceeds Delta={D}")
+    return worst_s, worst_f
+
+
+def phase_pencils(dev, records, cfg, params, tokens=(4, 2048), block=1024, kv_Delta_rel=1e-4):
+    """KV-cache compression of the full-width cache: prefill ``tokens`` with
+    ``params``, then ``compress_cache`` with the batched engine and fft_impl
+    "pallas" (kernels 3, 4 per pencil) and "xla", and one ``correct`` call on
+    the same quantization errors with an odd block (kernels 1, 2 per pencil).
+    ``kv_Delta_rel`` is tight enough that the loop corrects (at the default
+    1e-2 every pencil is inside both cubes at the first check).  Each run's
+    corrected errors are rechecked in float64 on the host.  Wall seconds are
+    of the second call of each run (the first builds cuFFT plans)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.kv_compress import compress_cache
+
+    bundle = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab, tokens, generator=gen, device=dev)}
+    cache = bundle.init_cache(tokens[0], tokens[1])
+    _, cache = bundle.prefill(params, batch, cache)
+    comp = dataclasses.replace(cfg.compression, kv_cache_compression=True, kv_Delta_rel=kv_Delta_rel)
+    n_values = sum(cache[k].numel() for k in ("k", "v"))
+
+    def run(label, engine, call):
+        call(engine)  # warm-up: cuFFT plans for this run's shapes
+        torch.cuda.synchronize()
+        calls = []
+        correct = engine.correct
+
+        def recording(errs, Es, Ds, **kw):
+            out = correct(errs, Es, Ds, **kw)
+            calls.append((errs, Es, Ds, out, kw["block"]))
+            return out
+
+        engine.correct = recording
+        read = reset_launches()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = call(engine)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            del engine.correct
+        counts = read()
+        (errs, Es, Ds, (corrected, stats), blk), = calls
+        iters = stats.block_iterations.cpu().numpy()
+        worst_s, worst_f = recheck_pencils(errs, Es, Ds, corrected, blk)
+        case = {"case": label, "fft_impl": engine.fft_impl, "backend": engine.backend, "block": blk,
+                "values": n_values, "pencils": int(iters.size), "seconds": seconds,
+                "iterations_histogram": {int(k): int(v) for k, v in zip(*np.unique(iters, return_counts=True))},
+                "converged": bool(stats.converged.all()), "worst_abs_over_E": worst_s,
+                "worst_spectrum_over_Delta": worst_f,
+                "launches": {k: v for k, v in counts.items() if v}}
+        require(case["converged"], f"pencils {label}: a pencil did not converge")
+        return case, counts, result, errs, Es
+
+    pallas = CorrectionEngine(backend="batched", fft_impl="pallas", device=dev)
+    case, counts, out, errs, Es = run("compress_cache pallas", pallas,
+                                      lambda eng: compress_cache(cache, comp, block=block, engine=eng))
+    # what the bf16 store adds on top of the float32 guarantee (reported only)
+    worst = 0.0
+    for j, name in enumerate(("k", "v")):
+        err = (out[name].float() - cache[name].float()).abs().amax(dim=(1, 2, 3, 4))
+        worst = max(worst, float((err / torch.stack(Es[j * cfg.n_layers:(j + 1) * cfg.n_layers])).max()))
+    case["bf16_store_worst_abs_over_E"] = worst
+    emit("pencils", **case)
+    for k in ("rfft_fwd_epilogue_rows", "unpack_sclip_rows"):
+        require(counts[k] > 0, f"pencils: kernel {k} never launched")
+        records[k]["launches"] = counts[k]
+    del out
+
+    case, counts, _, _, _ = run("compress_cache xla", CorrectionEngine(backend="batched", device=dev),
+                                lambda eng: compress_cache(cache, comp, block=block, engine=eng))
+    emit("pencils", **case)
+
+    odd = block - 1
+    Ds = [torch.tensor(comp.kv_Delta_rel * odd, dtype=torch.float32, device=dev) * E for E in Es]
+    case, counts, _, _, _ = run(f"correct block {odd} pallas", pallas,
+                                lambda eng: eng.correct(errs, Es, Ds, block=odd, max_iters=8))
+    emit("pencils", **case)
+    for k in ("fcube_rows", "scube_rows"):
+        require(counts[k] > 0, f"pencils: kernel {k} never launched")
+        records[k]["launches"] = counts[k]
+    del errs, cache
 
 
 def recheck(x, dec, blob):
@@ -539,15 +893,28 @@ def recheck(x, dec, blob):
     return spatial, frequency
 
 
-def run_case(phase, label, x, cfg, dev, must_launch):
+def run_case(phase, label, x, cfg, dev, must_launch, keep=None):
     """Drive compress + decompress once with the launch counts zeroed just
-    before and read just after; recheck the stored bounds in float64."""
+    before and read just after; recheck the stored bounds in float64.
+    ``keep`` (a dict) receives the EXECUTE result's spatial edits."""
     from repro_torch.compressors import get_compressor
     from repro_torch.core.ffcz import FFCz
 
     codec = FFCz(get_compressor("szlike"), cfg, device=dev)
+    if keep is not None:
+        encode = codec.engine.encode_field
+
+        def recording(result, plan):
+            keep.update(spat=result.spat, E=plan.E)
+            return encode(result, plan)
+
+        codec.engine.encode_field = recording  # the shared default engine: restored below
     read = reset_launches()
-    blob = codec.compress(x)
+    try:
+        blob = codec.compress(x)
+    finally:
+        if keep is not None:
+            del codec.engine.encode_field
     t0 = time.perf_counter()
     dec = codec.decompress(blob)
     decode_s = time.perf_counter() - t0
@@ -599,8 +966,9 @@ def main() -> int:
     # 4: the main path, even last axis — the fused epilogues (kernels 3, 4)
     x = make_field("nyx-like-256")
     cfg = FFCzConfig(E_rel=1e-3, Delta_rel=1e-3, fft_impl="pallas", max_iters=3000)
+    edits = {}
     counts, iters = run_case("even", "nyx-like-256 Delta_rel", x, cfg, dev,
-                             ("rfft_fwd_epilogue", "unpack_sclip"))
+                             ("rfft_fwd_epilogue", "unpack_sclip"), keep=edits)
     for k in ("rfft_fwd_epilogue", "unpack_sclip"):
         records[k]["launches"] = counts[k]
         records[k]["launches_per_iteration"] = counts[k] / iters
@@ -635,12 +1003,22 @@ def main() -> int:
         require(got.dtype == want.dtype and np.array_equal(got, want), f"golden {blob_name} differs")
         emit("golden", blob=blob_name, bitwise=True)
 
+    # QuantizeEdits and the zfplike block transform, through their public ops
+    records["quantize"] = phase_quantize(dev, edits["spat"], edits["E"])
+    records["block_transform"] = phase_block_transform(dev, x)
+    del edits
+
     # 8: the qwen2-0.5b dense LM at full width, through the flash kernel
     records["flash_attention"] = phase_flash(dev)
-    phase_lm(dev, records["flash_attention"])
+    cfg_lm, params = phase_lm(dev, records["flash_attention"])
+
+    # the pencil path: KV-cache compression of the full-width cache
+    records.update(phase_pencil_kernels(dev))
+    phase_pencils(dev, records, cfg_lm, params)
+    del params
 
     # 9: summary
-    kernels = [records[k] for k in ("scube", "fcube", "rfft_fwd_epilogue", "unpack_sclip", "flash_attention")]
+    kernels = [records[k] for k in KERNEL_ROWS]
     for r in kernels:
         require(r["launches"] > 0, f"{r['name']} has no launches on the main path")
     emit("summary", seconds=time.perf_counter() - t_start,

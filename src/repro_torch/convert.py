@@ -1,9 +1,11 @@
 """Carry the reference package's state into the port.
 
 For the codec, the state that crosses between the two packages is the
-whole-field plan and the loop result.  ``plan_from_reference`` and
-``result_from_reference`` take the reference dataclass's fields as plain
-numpy arrays and Python scalars (for example
+whole-field plan and the loop result, and for pencil batches the pencil plan
+and the per-instance stats.  ``plan_from_reference``,
+``result_from_reference``, ``pencil_plan_from_reference`` and
+``batch_stats_from_reference`` take the reference dataclass's fields as
+plain numpy arrays and Python scalars (for example
 ``{k: np.asarray(v) for k, v in dataclasses.asdict(ref_plan).items()}``,
 with ``None`` kept as ``None``) and build the port's dataclass, so one
 package's PLAN can feed the other's EXECUTE and one's result the other's
@@ -18,7 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.engine import FieldPlan, FieldResult
+from repro_torch.core.blockwise import BatchCorrectionStats
+from repro_torch.core.engine import FieldPlan, FieldResult, PencilPlan
 
 
 def _scalar_or_grid(v, dtype):
@@ -65,6 +68,39 @@ def result_from_reference(d: dict) -> FieldResult:
         iterations=int(d["iterations"]),
         converged=bool(d["converged"]),
         final_violations=int(d["final_violations"]),
+    )
+
+
+def _check_fields(cls, d: dict, what: str) -> None:
+    names = {f.name for f in dataclasses.fields(cls)}
+    if set(d) != names:
+        raise ValueError(f"{what} fields differ: extra {set(d) - names}, missing {names - set(d)}")
+
+
+def pencil_plan_from_reference(d: dict) -> PencilPlan:
+    """A :class:`PencilPlan` from the reference ``PencilPlan``'s fields."""
+    _check_fields(PencilPlan, d, "pencil plan")
+    return PencilPlan(
+        block=int(d["block"]),
+        quant_bits=int(d["quant_bits"]),
+        E=float(d["E"]),
+        Delta=float(d["Delta"]),
+        E_proj=float(d["E_proj"]),
+        Delta_proj=float(d["Delta_proj"]),
+    )
+
+
+def batch_stats_from_reference(d: dict, device="cpu") -> BatchCorrectionStats:
+    """A :class:`BatchCorrectionStats` (tensors on ``device``) from the
+    reference's fields."""
+    _check_fields(BatchCorrectionStats, d, "batch stats")
+    ints = lambda k: torch.tensor(np.asarray(d[k], dtype=np.int32), device=device)  # noqa: E731
+    bools = lambda k: torch.tensor(np.asarray(d[k], dtype=bool), device=device)  # noqa: E731
+    return BatchCorrectionStats(
+        iterations=ints("iterations"),
+        converged=bools("converged"),
+        block_iterations=ints("block_iterations"),
+        block_converged=bools("block_converged"),
     )
 
 

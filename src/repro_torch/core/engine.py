@@ -8,20 +8,24 @@
   ENCODE   pair-weight accounting, :func:`adaptive_quant_bits`, and
            edit-stream serialization through :mod:`repro_torch.core.edits`.
 
-This slice of the port runs one whole field on one device (the reference's
-``local`` path).  The pencil paths (``plan_pencils``, ``correct*``,
-``encode_pencils``) and the ``batched`` / ``sharded`` backends raise
-``NotImplementedError``; ROADMAP.md lists them as later slices.
+Whole fields run the loop on one device.  Pencil-tiled batches (the KV-cache,
+gradient and checkpoint clients) run :mod:`repro_torch.core.blockwise` on
+the ``local`` backend (one loop per tensor) or the ``batched`` backend (one
+loop for the whole batch, the default).  The ``sharded`` backend raises
+``NotImplementedError`` (ROADMAP.md Queue 1, slice 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+import functools
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.coding.quantize import DEFAULT_QUANT_BITS
+from repro_torch.core import blockwise
 from repro_torch.core.bounds import (
     power_spectrum_delta_rfft,
     resolve_bounds,
@@ -34,7 +38,7 @@ from repro_torch.core.pocs import AlternatingProjectionResult, alternating_proje
 from repro_torch.device import resolve_device
 
 _BACKENDS = ("local", "batched", "sharded")
-_NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md)"
+_FFT_IMPLS = ("xla", "packed", "pallas")
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +181,22 @@ class FieldPlan:
         return np.asarray(self.E_grid, dtype=np.float32).tobytes()
 
 
+@dataclasses.dataclass(frozen=True)
+class PencilPlan:
+    """PLAN-stage output for one tensor's pencil-tiled correction.
+
+    The frequency bound applies to each ``block``-length pencil's local
+    rfft spectrum: ``Delta = Delta_rel * max_k |RFFT(pencil of x)_k|``.
+    """
+
+    block: int
+    quant_bits: int
+    E: float
+    Delta: float
+    E_proj: float
+    Delta_proj: float
+
+
 @dataclasses.dataclass
 class FieldResult:
     """EXECUTE-stage output: float64-exact loop state ready to encode.
@@ -206,10 +226,7 @@ class FieldExecuteHandle:
         self._engine = engine
         self._raw = raw
         self._plan = plan
-        self._event = None
-        if raw.eps.device.type == "cuda":
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(raw.eps.device))
+        self._event = _record_event(raw.eps)
         self._value: Optional[FieldResult] = None
         self._exc: Optional[FFCzError] = None
 
@@ -227,27 +244,124 @@ class FieldExecuteHandle:
         return self._value
 
 
+def _spec(t) -> Tuple[Tuple[int, ...], torch.dtype]:
+    """(shape, torch dtype) of a tensor or an array."""
+    if isinstance(t, torch.Tensor):
+        return tuple(t.shape), t.dtype
+    a = np.asarray(t)
+    return a.shape, torch.from_numpy(np.empty(0, a.dtype)).dtype
+
+
+def _record_event(t: torch.Tensor):
+    """A CUDA event recorded on ``t``'s current stream, or None on the CPU."""
+    if t.device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    return event
+
+
+class PencilBatchHandle:
+    """One in-flight pencil EXECUTE over a packed ``(B, block)`` buffer.
+
+    ``result()`` fences on a CUDA event recorded after the loop's last launch
+    and returns the same ``(corrected, edits, stats)`` (or ``(corrected,
+    stats)``) tuple :meth:`CorrectionEngine.correct` produces, with
+    per-tensor slices of the packed outputs.  Idempotent, like
+    :class:`FieldExecuteHandle`; failures re-raise classified.
+    """
+
+    def __init__(self, raw, stats, specs, counts, pads, return_edits, return_corrected):
+        self._raw = raw
+        self._stats = stats
+        self._specs = specs  # [(shape, torch dtype)] per tensor
+        self._counts = counts
+        self._pads = pads
+        self._return_edits = return_edits
+        self._return_corrected = return_corrected
+        self._event = _record_event(raw.eps)
+        self._value = None
+        self._exc: Optional[FFCzError] = None
+
+    def result(self):
+        if self._exc is not None:
+            raise self._exc
+        if self._value is None:
+            try:
+                if self._event is not None:
+                    self._event.synchronize()
+                res, corrected, edits = self._raw, [], []
+                offset = 0
+                for (shape, dtype), nb, pad in zip(self._specs, self._counts, self._pads):
+                    sl = slice(offset, offset + nb)
+                    if self._return_corrected:
+                        corrected.append(blockwise.untile_1d(res.eps[sl], shape, pad).to(dtype))
+                    if self._return_edits:
+                        edits.append((res.spat_edits[sl], res.freq_edits[sl]))
+                    offset += nb
+                if self._return_edits:
+                    self._value = (corrected, edits, self._stats)
+                else:
+                    self._value = (corrected, self._stats)
+            except (RuntimeError, MemoryError) as e:
+                self._exc = classify_exception(e, "execute")
+                raise self._exc from e
+            finally:
+                self._raw = self._event = None
+        return self._value
+
+
+class _FenceHandle:
+    """Handle over already-structured outputs: ``result()`` is the event
+    fence.  Used by the ``local`` backend, whose loops run eagerly."""
+
+    def __init__(self, value, device):
+        self._value = value
+        self._event = None
+        if torch.device(device).type == "cuda":
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(device))
+
+    def result(self):
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        return self._value
+
+
 # ---------------------------------------------------------------------------
 # the engine
 
 
 class CorrectionEngine:
-    """Plan / execute / encode whole-field FFCz corrections on one device.
+    """Plan / execute / encode FFCz corrections on one device.
 
     Args:
-      backend: ``"local"`` only in this slice; ``"batched"`` and ``"sharded"``
-        raise ``NotImplementedError``.  Whole fields take their transform
-        selector from ``FFCzConfig.fft_impl`` via the plan.
+      backend: ``"local"`` (one pencil loop per tensor) or ``"batched"`` (one
+        loop for a whole batch; the default).  ``"sharded"`` raises
+        ``NotImplementedError`` (ROADMAP.md Queue 1, slice 5).  Whole fields
+        run the same loop on every backend.
+      axis: the mesh axis name of the sharded backend (kept for the
+        reference's signature).
+      fft_impl: default POCS transform selector for the *pencil* paths
+        (``"xla"`` | ``"packed"`` | ``"pallas"``); whole fields take theirs
+        from ``FFCzConfig.fft_impl`` via the plan.
       device: where PLAN's spectra and EXECUTE's loop run; ``None`` means
         ``"cuda"`` and raises when there is no card (never a CPU fallback).
     """
 
-    def __init__(self, backend: str = "local", device=None):
+    def __init__(self, backend: str = "batched", axis: str = "data", fft_impl: str = "xla", device=None):
         if backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
-        if backend != "local":
-            raise NotImplementedError(f"the {backend!r} backend {_NOT_PORTED}")
+        if fft_impl not in _FFT_IMPLS:
+            raise ValueError(f"fft_impl must be 'xla', 'packed' or 'pallas', got {fft_impl!r}")
+        if backend == "sharded":
+            raise NotImplementedError(
+                "the 'sharded' backend is not ported to repro_torch yet (ROADMAP.md Queue 1, slice 5)"
+            )
         self.backend = backend
+        self.axis = axis
+        self.fft_impl = fft_impl
         self.device = resolve_device(device)
 
     # -- PLAN --------------------------------------------------------------
@@ -347,8 +461,69 @@ class CorrectionEngine:
             E_grid_proj=E_grid_proj,
         )
 
-    def plan_pencils(self, *args, **kwargs):
-        raise NotImplementedError(f"plan_pencils {_NOT_PORTED}")
+    def plan_pencils(
+        self,
+        x32: np.ndarray,
+        *,
+        E_rel: Optional[float] = None,
+        Delta_rel: Optional[float] = None,
+        block: int,
+        quant_bits: int = DEFAULT_QUANT_BITS,
+        E_abs: Optional[float] = None,
+        Delta_abs: Optional[float] = None,
+        E_roi=None,
+        E_roi_scale: float = 0.1,
+    ) -> Optional[PencilPlan]:
+        """Resolve one tensor's pencil-tiled bounds; None if E underflows.
+
+        Host float64 (``np.fft.rfft``), as in the reference: the per-pencil
+        ``Delta`` is the published guarantee other tools recompute exactly.
+        The cast-noise slack uses per-pencil norms.  ``E_abs``/``Delta_abs``
+        override the relative resolution (each independently); ``E_roi``
+        collapses to the tightest resolved bound (pencil tiling scrambles
+        spatial adjacency).
+        """
+        flat = x32.reshape(-1)
+        tiles = np.pad(flat, (0, (-flat.size) % block)).reshape(-1, block)
+        if E_abs is not None:
+            E = float(E_abs)
+        else:
+            if E_rel is None:
+                raise ValueError("plan_pencils needs E_rel or E_abs")
+            E = E_rel * float(np.ptp(x32))
+        if E_roi is not None:
+            grid = resolve_roi_bound_grid(E_roi, E, tuple(x32.shape), scale=E_roi_scale)
+            E = float(np.min(grid))
+        if Delta_abs is not None:
+            Delta = float(Delta_abs)
+        else:
+            if Delta_rel is None:
+                raise ValueError("plan_pencils needs Delta_rel or Delta_abs")
+            Delta = Delta_rel * float(np.abs(np.fft.rfft(tiles, axis=-1)).max())
+        E_proj, Delta_proj, Delta, _slack_f = float32_bound_discipline(
+            E,
+            Delta,
+            quant_bits,
+            np.sqrt((tiles.astype(np.float64) ** 2).sum(axis=-1).max()),
+            np.max(np.abs(x32)) if x32.size else 0.0,
+        )
+        if E_proj <= 0:
+            return None
+        return PencilPlan(
+            block=block,
+            quant_bits=quant_bits,
+            E=E,
+            Delta=float(Delta),
+            E_proj=float(E_proj),
+            Delta_proj=float(Delta_proj),
+        )
+
+    @staticmethod
+    def tile_f64(eps0: np.ndarray, block: int) -> np.ndarray:
+        """Float64 (n_blocks, block) tiling of an error tensor — the exact
+        loop state the pencil polish rebuilds from."""
+        flat = np.asarray(eps0, dtype=np.float64).reshape(-1)
+        return np.pad(flat, (0, (-flat.size) % block)).reshape(-1, block)
 
     # -- EXECUTE -----------------------------------------------------------
 
@@ -439,11 +614,152 @@ class CorrectionEngine:
             final_violations=final_violations,
         )
 
-    def correct(self, *args, **kwargs):
-        raise NotImplementedError(f"correct {_NOT_PORTED}")
+    def _on_device(self, t):
+        """A torch tensor as is, an array copied to the engine's device."""
+        if isinstance(t, torch.Tensor):
+            return t
+        return torch.from_numpy(np.ascontiguousarray(t)).to(self.device)
 
-    def correct_async(self, *args, **kwargs):
-        raise NotImplementedError(f"correct_async {_NOT_PORTED}")
+    def correct(
+        self,
+        tensors: Sequence[Any],
+        E,
+        Delta,
+        block: int = 4096,
+        max_iters: int = 50,
+        return_edits: bool = False,
+        return_corrected: bool = True,
+        fft_impl: Optional[str] = None,
+        warm_freq: Optional[Sequence[Any]] = None,
+    ):
+        """Pencil-tiled correction of a heterogeneous batch on this backend.
+
+        Same contract as :func:`repro_torch.core.blockwise.correct_batch`
+        (the ``batched`` backend); the ``local`` backend runs one loop per
+        tensor.  Tensors run where they lie; numpy arrays are copied to the
+        engine's device.  ``fft_impl`` overrides the engine default for this
+        call; ``warm_freq`` optionally seeds each tensor's blocks with prior
+        edit spectra (``(n_blocks_i, block//2+1)`` per tensor).
+        """
+        fft_impl = self.fft_impl if fft_impl is None else fft_impl
+        tensors = [self._on_device(t) for t in tensors]
+        try:
+            if self.backend == "local":
+                return self._correct_local(
+                    tensors, E, Delta, block, max_iters, return_edits, return_corrected,
+                    fft_impl, warm_freq,
+                )
+            return blockwise.correct_batch(
+                tensors,
+                E,
+                Delta,
+                block=block,
+                max_iters=max_iters,
+                return_edits=return_edits,
+                return_corrected=return_corrected,
+                backend=self.backend,
+                fft_impl=fft_impl,
+                warm_freq=warm_freq,
+                device=self.device,
+            )
+        except (RuntimeError, MemoryError) as e:
+            raise classify_exception(e, "execute") from e
+
+    def correct_async(
+        self,
+        tensors: Sequence[Any],
+        E,
+        Delta,
+        block: int = 4096,
+        max_iters: int = 50,
+        return_edits: bool = False,
+        return_corrected: bool = True,
+        fft_impl: Optional[str] = None,
+        staging: Optional[np.ndarray] = None,
+        warm_freq: Optional[Sequence[Any]] = None,
+    ):
+        """Run a pencil-batch correction; return a handle before the fence.
+
+        The async twin of :meth:`correct`: the batch is packed on the host
+        (:func:`repro_torch.core.blockwise.pack_batch`; ``staging``
+        optionally reuses a caller-cached ``(B, block)`` buffer), copied to
+        the engine's device and corrected by the same batched loop as
+        :meth:`correct`, so results are interchangeable.  The loop reads its
+        convergence counts back to the host, so the launches are all issued
+        when this returns; the handle's ``result()`` fences on a CUDA event
+        and slices per tensor.
+        """
+        fft_impl = self.fft_impl if fft_impl is None else fft_impl
+        if len(tensors) == 0:
+            empty = blockwise.empty_stats(self.device)
+            return _FenceHandle(([], [], empty) if return_edits else ([], empty), self.device)
+        if self.backend == "local":
+            try:
+                return _FenceHandle(
+                    self._correct_local(
+                        [self._on_device(t) for t in tensors], E, Delta, block, max_iters,
+                        return_edits, return_corrected, fft_impl, warm_freq,
+                    ),
+                    self.device,
+                )
+            except (RuntimeError, MemoryError) as e:
+                raise classify_exception(e, "execute") from e
+        specs = [_spec(t) for t in tensors]
+        try:
+            packed, counts, pads = blockwise.pack_batch(tensors, block, out=staging)
+            warm = None
+            if warm_freq is not None:
+                warm = np.concatenate(
+                    [blockwise.to_numpy(w).astype(np.complex64) for w in warm_freq], axis=0
+                )
+            res, stats = blockwise.correct_packed(
+                packed, counts, E, Delta, max_iters=max_iters, backend=self.backend,
+                fft_impl=fft_impl, warm=warm, device=self.device,
+            )
+        except (RuntimeError, MemoryError) as e:
+            raise classify_exception(e, "execute") from e
+        return PencilBatchHandle(res, stats, specs, counts, pads, return_edits, return_corrected)
+
+    def _correct_local(
+        self, tensors, E, Delta, block, max_iters, return_edits, return_corrected,
+        fft_impl="xla", warm_freq=None,
+    ):
+        """One loop per tensor.  Bounds go through the same resolver as the
+        batched backend so the scalar-vs-per-tensor contract cannot
+        diverge."""
+        n = len(tensors)
+        dev = tensors[0].device if n else self.device
+        Es = blockwise.as_bound_array(E, n, dev)
+        Ds = blockwise.as_bound_array(Delta, n, dev)
+        warms = [None] * n if warm_freq is None else list(warm_freq)
+        if len(warms) != n:
+            raise ValueError(f"expected {n} per-tensor warm spectra, got {len(warms)}")
+        corrected, edits, it_blocks, conv_blocks, it_t, conv_t = [], [], [], [], [], []
+        for t, e, d, w in zip(tensors, Es, Ds, warms):
+            corr, spat, freq, iters, conv = blockwise.blockwise_correct_with_edits(
+                t, e, d, block=block, max_iters=max_iters, fft_impl=fft_impl,
+                warm=None if w is None else torch.as_tensor(w, device=t.device),
+            )
+            if return_corrected:
+                corrected.append(corr.to(t.dtype))
+            if return_edits:
+                edits.append((spat, freq))
+            it_blocks.append(iters)
+            conv_blocks.append(conv)
+            it_t.append(torch.max(iters))
+            conv_t.append(torch.all(conv))
+        if n:
+            stats = blockwise.BatchCorrectionStats(
+                iterations=torch.stack(it_t),
+                converged=torch.stack(conv_t),
+                block_iterations=torch.cat(it_blocks),
+                block_converged=torch.cat(conv_blocks),
+            )
+        else:
+            stats = blockwise.empty_stats(dev)
+        if return_edits:
+            return corrected, edits, stats
+        return corrected, stats
 
     # -- ENCODE ------------------------------------------------------------
 
@@ -489,5 +805,48 @@ class CorrectionEngine:
             raise classify_exception(e, "encode") from e
         return se, fe
 
-    def encode_pencils(self, *args, **kwargs):
-        raise NotImplementedError(f"encode_pencils {_NOT_PORTED}")
+    def encode_pencils(
+        self,
+        spat_t: Any,
+        freq_t: Any,
+        tiles0: np.ndarray,
+        plan: PencilPlan,
+        codec: str = "zlib",
+    ) -> Tuple[EncodedEdits, EncodedEdits]:
+        """Polish + serialize one tensor's pencil edit streams.
+
+        ``spat_t``/``freq_t`` are the edit tiles from :meth:`correct`
+        (tensors on any device, or arrays); ``tiles0`` the float64 tiling of
+        the *initial* error (:meth:`tile_f64`).  The float64 polish reruns
+        on the reconstructed loop state on the host, then adaptive
+        bit-widths are chosen per worst-case pencil.
+        """
+        spat = blockwise.to_numpy(spat_t).astype(np.float64)
+        freq = blockwise.to_numpy(freq_t).astype(np.complex128)
+        eps_now = tiles0 + np.fft.irfft(freq, n=plan.block, axis=-1) + spat
+        _eps, spat, freq = polish_pocs_float64(
+            eps_now, spat, freq, plan.E_proj, plan.Delta_proj, axes=(1,)
+        )
+        pair_w = rfft_pair_weights((plan.block,)).numpy().reshape(-1)
+        k_s_max = int(np.count_nonzero(spat, axis=1).max()) if spat.size else 0
+        wsum_max = float(((freq != 0) * pair_w).sum(axis=1).max()) if freq.size else 0.0
+        m_s, m_f = adaptive_quant_bits(
+            plan.quant_bits, k_s_max, plan.E, plan.Delta, wsum_max * plan.Delta, plan.block, cap=40
+        )
+        try:
+            se = encode_edits(spat, plan.E, m=m_s, codec=codec)
+            fe = encode_edits(freq, plan.Delta, m=m_f, codec=codec, half_spectrum=True)
+        except (RuntimeError, MemoryError, OSError) as e:
+            raise classify_exception(e, "encode") from e
+        return se, fe
+
+
+@functools.lru_cache(maxsize=None)
+def _default_engine(device: torch.device) -> CorrectionEngine:
+    return CorrectionEngine(backend="batched", device=device)
+
+
+def default_engine(device=None) -> CorrectionEngine:
+    """Process-wide batched engine the framework integrations share, one per
+    device; ``None`` means ``"cuda"`` (and raises without a card)."""
+    return _default_engine(resolve_device(device))

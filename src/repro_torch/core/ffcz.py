@@ -52,6 +52,7 @@ from repro_torch.core.errors import BlobCorruptError, FFCzError
 from repro_torch.core.engine import (
     CorrectionEngine,
     adaptive_quant_bits,
+    default_engine,
     float32_bound_discipline,
     polish_pocs_float64,
 )
@@ -453,7 +454,7 @@ class FFCz:
 
     ``base`` must expose ``compress(x, E) -> bytes`` and
     ``decompress(blob) -> np.ndarray`` with a pointwise L-inf guarantee.
-    ``engine`` defaults to a :class:`CorrectionEngine` on ``device``;
+    ``engine`` defaults to the shared :func:`default_engine` of ``device``;
     ``device=None`` means ``"cuda"`` and raises when there is no card (pass
     ``device="cpu"`` to run the kernels' plain twins on the CPU).
     """
@@ -469,7 +470,7 @@ class FFCz:
         self.config = config
         if engine is not None and device is not None:
             raise ValueError("pass either an engine or a device: the engine owns its device")
-        self.engine = engine if engine is not None else CorrectionEngine(device=device)
+        self.engine = engine if engine is not None else default_engine(device)
 
     # -- compression ------------------------------------------------------
 

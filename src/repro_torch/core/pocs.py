@@ -51,6 +51,18 @@ same values as the reference's out-of-place sums.
 Layout: the CUDA kernels take contiguous tensors only, and cuFFT's
 multi-dimensional transforms may hand back other strides, so every
 transform output is made contiguous (a no-op when it already is).
+
+Batched pencils (:func:`alternating_projection_batched`): the reference runs
+``jax.vmap(alternating_projection)`` over a packed ``(B, block)`` buffer, one
+independent 1-D loop per row with its own ``E`` and ``Delta``.  Here the rows
+are one batch: 1-D transforms over the last axis and the kernels' per-pencil
+modes (per-row bounds and counts, the Hermitian mirror within the row).  A
+vmapped ``while_loop`` runs until every row is done and freezes each row's
+state once its check says done; the loop reproduces that with an active-row
+mask and ``torch.where`` after the kernels.  The kernels run on every row
+(frozen rows' results are discarded), which keeps them free of masks and
+costs nothing while most rows are active — converged rows are not gathered
+away.
 """
 
 from __future__ import annotations
@@ -317,4 +329,125 @@ def alternating_projection(
         iterations=it,
         converged=done,
         final_violations=0 if done else viol,
+    )
+
+
+def alternating_projection_batched(
+    eps0: torch.Tensor,
+    E,
+    Delta,
+    max_iters: int = 1000,
+    fft_impl: str = "xla",
+    warm_freq: Optional[torch.Tensor] = None,
+) -> AlternatingProjectionResult:
+    """Alg. 1 on every row of a ``(B, block)`` batch of independent pencils.
+
+    The semantics of ``jax.vmap(alternating_projection)`` over rows, with
+    per-row scalar bounds: ``E`` and ``Delta`` are scalars or ``(B,)``
+    vectors, ``warm_freq`` an optional ``(B, block // 2 + 1)`` complex
+    seed.  Each row stops when its own check finds it inside the f-cube (its
+    ``eps``, edits, iteration count and violation count are frozen from then
+    on) or at ``max_iters``; the loop runs until no row is left, reading the
+    rows' counts back to the host once per iteration (one ``any()``).
+
+    ``fft_impl`` as in :func:`alternating_projection`; ``"pallas"`` runs the
+    fused epilogues in per-pencil mode for an even ``block`` and the fused
+    fcube/scube kernels in per-pencil mode for an odd one (the reference's
+    static fallback).  Returns an :class:`AlternatingProjectionResult` whose
+    ``iterations``, ``converged`` and ``final_violations`` are ``(B,)``
+    tensors (int32, bool, int32) on ``eps0``'s device.
+    """
+    if fft_impl not in _FFT_IMPLS:
+        raise ValueError(f"fft_impl must be one of {_FFT_IMPLS}, got {fft_impl!r}")
+    if eps0.ndim != 2 or eps0.dtype != torch.float32:
+        raise ValueError(f"need a float32 (B, block) batch, got {eps0.dtype} {tuple(eps0.shape)}")
+    rows, n = eps0.shape
+    dev = eps0.device
+
+    def per_row(b):
+        return torch.broadcast_to(
+            torch.as_tensor(b, dtype=torch.float32, device=dev).reshape(-1), (rows,)
+        ).reshape(rows, 1).contiguous()
+
+    E, Delta = per_row(E), per_row(Delta)
+    packed_ok = fft_impl != "xla" and rfft_ops.supports_packed((n,))
+    pallas_fused = fft_impl == "pallas" and packed_ok
+    use_kernels = fft_impl == "pallas" and not packed_ok
+    h = n // 2 + 1
+
+    def fwd(e):
+        return torch.fft.rfft(e, dim=-1).contiguous()
+
+    if packed_ok:
+        def inv(d):
+            return rfft_ops.packed_irfft(d, n).contiguous()
+    else:
+        def inv(d):
+            return torch.fft.irfft(d, n=n, dim=-1).contiguous()
+
+    tol1, slack = fcube_ops.threshold_scalars(_CHECK_TOL, 0.0)
+    dt = Delta * torch.tensor(tol1, device=dev) + torch.tensor(slack, device=dev)
+    has_nyquist = n % 2 == 0 and h > 1
+
+    def count_violations(delta):
+        vb = ((torch.abs(delta.real) > dt) | (torch.abs(delta.imag) > dt)).to(torch.int32)
+        viol = 2 * torch.sum(vb, dim=-1) - vb[:, 0]
+        if has_nyquist:
+            viol = viol - vb[:, -1]
+        return viol.to(torch.int32)
+
+    if warm_freq is None:
+        eps, spat = eps0, torch.zeros_like(eps0)
+        freq = torch.zeros((rows, h), dtype=torch.complex64, device=dev)
+    else:
+        freq = torch.as_tensor(warm_freq, device=dev).to(torch.complex64).clone()
+        if tuple(freq.shape) != (rows, h):
+            raise ValueError(f"warm_freq must have shape {(rows, h)}, got {tuple(freq.shape)}")
+        eps, spat = project_scube(eps0 + inv(freq), E)
+
+    iterations = torch.zeros(rows, dtype=torch.int32, device=dev)
+    done = torch.zeros(rows, dtype=torch.bool, device=dev)
+    viol_state = torch.full((rows,), -1, dtype=torch.int32, device=dev)
+    active = torch.ones(rows, dtype=torch.bool, device=dev)
+    it, stepping_any = 0, rows > 0
+    while stepping_any and it < max_iters:
+        delta = fwd(eps)
+        if pallas_fused:
+            _clipped, f_disp, Z, viol = rfft_ops.fwd_epilogue_fused(
+                delta, Delta, weighted=True, check_tol=_CHECK_TOL, per_row=True
+            )
+        elif use_kernels:
+            clipped, f_disp, viol = fcube_ops.project_fcube_fused(
+                delta, Delta, n_last=n, check_tol=_CHECK_TOL, per_row=True
+            )
+        else:
+            clipped, f_disp = project_fcube(delta, Delta)
+            viol = count_violations(delta)
+        done_now = viol == 0
+        stepping = active & ~done_now
+        stepping_any = bool(stepping.any())  # the host waits for the device here only
+        if stepping_any:
+            if pallas_fused:
+                z = torch.fft.ifft(Z, dim=-1).contiguous()
+                eps_s, s_disp = rfft_ops.unpack_sclip_fused(z, E, (rows, n))
+            elif use_kernels:
+                eps_s, s_disp = scube_ops.project_scube_fused(inv(clipped), E)
+            else:
+                eps_s, s_disp = project_scube(inv(clipped), E)
+            col = stepping[:, None]
+            freq = torch.where(col, freq + f_disp, freq)
+            spat = torch.where(col, spat + s_disp, spat)
+            eps = torch.where(col, eps_s, eps)
+        viol_state = torch.where(active, viol, viol_state)
+        done = done | (active & done_now)
+        iterations += active.to(torch.int32)
+        active = stepping
+        it += 1
+    return AlternatingProjectionResult(
+        eps=eps,
+        spat_edits=spat,
+        freq_edits=freq,
+        iterations=iterations,
+        converged=done,
+        final_violations=torch.where(done, torch.zeros_like(viol_state), viol_state),
     )

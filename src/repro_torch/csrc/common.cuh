@@ -1,6 +1,7 @@
-// Shared device helpers of the port's POCS-loop kernels (scube.cu, fcube.cu,
-// rfft.cu): the bound clip, the convergence threshold, the conjugate-pair
-// weight and the per-block violation-count reduction.
+// Shared device helpers of the port's kernels (scube.cu, fcube.cu, rfft.cu,
+// quantize.cu, block_transform.cu): the bound clip, the convergence threshold,
+// the conjugate-pair weight, the per-block violation-count reduction and the
+// launch shapes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,6 +51,13 @@ inline unsigned grid_for(long long n) {
   const long long cap = 132LL * 8;
   if (blocks > cap) blocks = cap;
   return (unsigned)(blocks < 1 ? 1 : blocks);
+}
+
+// Block size for the per-pencil kernels (one block per row of h elements):
+// whole warps, at most kThreads, no more than the row needs.
+inline unsigned row_threads(long long h) {
+  long long t = (h + 31) / 32 * 32;
+  return (unsigned)(t > kThreads ? kThreads : (t < 32 ? 32 : t));
 }
 
 }  // namespace repro_torch

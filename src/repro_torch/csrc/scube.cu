@@ -12,18 +12,23 @@
 // with coalesced 4-byte accesses over exactly n elements (no padding lanes:
 // the tail is masked by the loop bound), E read once per element or held in a
 // register when scalar.
+//
+// Per-pencil mode (the batched pencil loop, a vmap of the TPU kernel over
+// rows): E is one value per row of row_len elements, read from a vector of
+// rows floats (L1/L2-resident) instead of a field-sized grid.
 #include "common.cuh"
 
 namespace {
 
-template <bool kPointwise>
+// kMode: 0 scalar E, 1 pointwise E (one per element), 2 one E per row
+template <int kMode>
 __global__ void scube_kernel(const float* __restrict__ x, const float* __restrict__ e,
-                             float e_scalar, float* __restrict__ out,
+                             float e_scalar, unsigned row_len, float* __restrict__ out,
                              float* __restrict__ edit, long long n) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const float xi = x[i];
-    const float b = kPointwise ? e[i] : e_scalar;
+    const float b = kMode == 1 ? e[i] : (kMode == 2 ? e[(unsigned)i / row_len] : e_scalar);
     const float c = repro_torch::clip_bound(xi, b);
     out[i] = c;
     edit[i] = __fsub_rn(c, xi);
@@ -32,17 +37,26 @@ __global__ void scube_kernel(const float* __restrict__ x, const float* __restric
 
 }  // namespace
 
-extern "C" int scube_launch(const void* x, const void* e, float e_scalar, int pointwise,
-                            void* out, void* edit, long long n, void* stream) {
+// mode: 0 scalar e_scalar, 1 e holds n bounds, 2 e holds n / row_len bounds
+// (one per row of row_len contiguous elements).
+extern "C" int scube_launch(const void* x, const void* e, float e_scalar, int mode,
+                            long long row_len, void* out, void* edit, long long n,
+                            void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const unsigned grid = repro_torch::grid_for(n);
   cudaStream_t s = (cudaStream_t)stream;
-  if (pointwise) {
-    scube_kernel<true><<<grid, repro_torch::kThreads, 0, s>>>(
-        (const float*)x, (const float*)e, e_scalar, (float*)out, (float*)edit, n);
+  const float* xp = (const float*)x;
+  const float* ep = (const float*)e;
+  const unsigned len = (unsigned)row_len;
+  if (mode == 1) {
+    scube_kernel<1><<<grid, repro_torch::kThreads, 0, s>>>(xp, ep, e_scalar, len, (float*)out,
+                                                            (float*)edit, n);
+  } else if (mode == 2) {
+    scube_kernel<2><<<grid, repro_torch::kThreads, 0, s>>>(xp, ep, e_scalar, len, (float*)out,
+                                                            (float*)edit, n);
   } else {
-    scube_kernel<false><<<grid, repro_torch::kThreads, 0, s>>>(
-        (const float*)x, nullptr, e_scalar, (float*)out, (float*)edit, n);
+    scube_kernel<0><<<grid, repro_torch::kThreads, 0, s>>>(xp, nullptr, e_scalar, len,
+                                                            (float*)out, (float*)edit, n);
   }
   return (int)cudaGetLastError();
 }

@@ -39,19 +39,27 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-#: one shared library per source (the POCS-loop sources include csrc/common.cuh)
-SOURCES = ("scube", "fcube", "rfft", "flash_attention")
+#: one shared library per source (every source includes csrc/common.cuh)
+SOURCES = ("scube", "fcube", "rfft", "flash_attention", "quantize", "block_transform")
 
 _P, _F, _I, _L = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
 #: argtypes of each library's launchers (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "scube": {"scube_launch": (_P, _P, _F, _I, _P, _P, _L, _P)},
-    "fcube": {"fcube_launch": (_P, _P, _F, _I, _F, _F, _L, _I, _I, _P, _P, _P, _L, _P)},
+    "scube": {"scube_launch": (_P, _P, _F, _I, _L, _P, _P, _L, _P)},
+    "fcube": {
+        "fcube_launch": (_P, _P, _F, _I, _F, _F, _L, _I, _I, _P, _P, _P, _L, _P),
+        "fcube_rows_launch": (_P, _P, _F, _I, _F, _F, _L, _L, _I, _I, _P, _P, _P, _P),
+    },
     "rfft": {
         "rfft_fwd_epilogue_launch": (
             _P, _P, _F, _I, _P, _F, _F, _I, _L, _L, _L, _L, _P, _P, _P, _P, _P,
-        )
+        ),
+        "rfft_fwd_epilogue_rows_launch": (
+            _P, _P, _F, _I, _P, _F, _F, _I, _L, _L, _P, _P, _P, _P, _P,
+        ),
     },
+    "quantize": {"quantize_launch": (_P, _P, _F, _I, _F, _P, _P, _L, _P)},
+    "block_transform": {"block_transform_launch": (_P, _P, _F, _I, _L, _P, _P)},
     "flash_attention": {
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P)
     },
@@ -151,15 +159,31 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{name} has {t.numel()} elements; the kernels take < 2^31")
 
 
-def bound_operand(b, shape, device) -> Tuple[Optional[torch.Tensor], float, int]:
-    """``(grid, scalar, pointwise)`` kernel operands of a scalar or array bound.
+def is_row_bound(b, shape) -> bool:
+    """True when ``b`` is one bound per row of ``shape``: an array of shape
+    ``shape[:-1] + (1,)`` (the per-pencil layout of the batched loop)."""
+    return getattr(b, "ndim", 0) > 0 and len(shape) > 0 and (
+        tuple(b.shape) == tuple(shape[:-1]) + (1,)
+    )
 
-    A scalar bound is passed by value, rounded to float32 (a Python float
-    costs nothing; a 0-d CUDA tensor is read back, which waits for the
-    device — the POCS loop keeps its scalar bounds on the host).  An array
-    bound becomes a contiguous float32 grid of ``shape`` on ``device``.
+
+def bound_operand(b, shape, device, rows: bool = False) -> Tuple[Optional[torch.Tensor], float, int]:
+    """``(operand, scalar, mode)`` kernel operands of a scalar or array bound.
+
+    A scalar bound (mode 0) is passed by value, rounded to float32 (a Python
+    float costs nothing; a 0-d CUDA tensor is read back, which waits for the
+    device — the POCS loop keeps its scalar bounds on the host).  With
+    ``rows`` an array bound must be one value per row (:func:`is_row_bound`)
+    and becomes a contiguous float32 vector of ``prod(shape[:-1])`` values
+    (mode 2); otherwise it becomes a contiguous float32 grid of ``shape``
+    (mode 1).  All on ``device``.
     """
     if getattr(b, "ndim", 0) == 0:
         return None, float(np.float32(float(b))), 0
-    grid = torch.broadcast_to(torch.as_tensor(b, dtype=torch.float32, device=device), shape)
-    return grid.contiguous(), 0.0, 1
+    t = torch.as_tensor(b, dtype=torch.float32, device=device)
+    if rows:
+        if not is_row_bound(t, shape):
+            raise ValueError(f"a per-row bound must have shape {tuple(shape[:-1]) + (1,)}, "
+                             f"got {tuple(t.shape)}")
+        return t.reshape(-1).contiguous(), 0.0, 2
+    return torch.broadcast_to(t, shape).contiguous(), 0.0, 1

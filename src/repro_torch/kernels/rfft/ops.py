@@ -27,6 +27,16 @@ fused epilogues around cuFFT instead:
   field; the clip runs on that view with ``E`` in natural layout.  It
   launches the s-cube kernel (``csrc/scube.cu``) and counts under its own
   name; it replaces the reference's ``_unpack_sclip_kernel``.
+
+Per-pencil mode (the batched pencil loop's vmap of the reference kernels):
+every leading index is an independent row whose last axis is one 1-D signal.
+:func:`fwd_epilogue_fused` with ``per_row=True`` mirrors within the row only
+(the leading axis is a batch, not a frequency axis), takes a scalar or
+per-row ``Delta`` (shape ``delta.shape[:-1] + (1,)``) and counts per row;
+:func:`unpack_sclip_fused` given a per-row ``E`` launches the s-cube kernel's
+per-row mode.  The half-length inverse between them is ``torch.fft.ifft``
+over the last axis.  They count under ``rfft_fwd_epilogue_rows`` and
+``unpack_sclip_rows``.
 """
 
 from __future__ import annotations
@@ -43,7 +53,9 @@ from repro_torch.kernels.fcube.ops import threshold_scalars
 from repro_torch.kernels.scube.ops import project_scube_plain, scube_launch
 
 #: kernel launches by wrapper (reset them to 0 to count a run's launches)
-launches = {"rfft_fwd_epilogue": 0, "unpack_sclip": 0}
+launches = {
+    "rfft_fwd_epilogue": 0, "rfft_fwd_epilogue_rows": 0, "unpack_sclip": 0, "unpack_sclip_rows": 0,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -142,13 +154,15 @@ def packed_irfft(X: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def fwd_epilogue_plain(
-    delta: torch.Tensor, Delta, weighted: bool = False, check_tol: float = 0.0, check_slack=0.0
+    delta: torch.Tensor, Delta, weighted: bool = False, check_tol: float = 0.0, check_slack=0.0,
+    per_row: bool = False,
 ):
     """Plain twin of :func:`fwd_epilogue_fused`, on real float32 tensors.
 
     The mirror is explicit (``mirror_half_spectrum`` of the spectrum and of
-    a pointwise bound) and every product and sum of the twiddle step is its
-    own rounded operation, in the kernel's order.
+    a pointwise bound, or a flip of the last axis only with ``per_row``) and
+    every product and sum of the twiddle step is its own rounded operation,
+    in the kernel's order.
     """
     h = delta.shape[-1]
     nh = h - 1
@@ -162,9 +176,10 @@ def fwd_epilogue_plain(
     vb = ((torch.abs(xr) > dt) | (torch.abs(xi) > dt)).to(torch.int32)
     if weighted:
         vb = vb * rfft_pair_weights((2 * nh,), device=delta.device).reshape(-1)
-    viol = torch.sum(vb).to(torch.int32)
-    m = mirror_half_spectrum(delta)
-    dm = mirror_half_spectrum(torch.broadcast_to(d, delta.shape)) if d.ndim else d
+    viol = (torch.sum(vb, dim=-1) if per_row else torch.sum(vb)).to(torch.int32)
+    mirror = _flip_last if per_row else mirror_half_spectrum
+    m = mirror(delta)
+    dm = mirror(torch.broadcast_to(d, delta.shape)) if d.ndim else d
     cmr = torch.clamp(m.real.to(torch.float32), -dm, dm)[..., :nh]
     cmi = torch.clamp(m.imag.to(torch.float32), -dm, dm)[..., :nh]
     w = _w_inv_tensor(2 * nh, str(delta.device))[:nh]
@@ -182,8 +197,14 @@ def fwd_epilogue_plain(
     return clipped, edits, Z.to(delta.dtype), viol
 
 
+def _flip_last(a: torch.Tensor) -> torch.Tensor:
+    """The per-row Hermitian mirror ``a[r, k] -> a[r, Nh - k]``."""
+    return torch.flip(a, dims=(a.ndim - 1,))
+
+
 def fwd_epilogue_fused(
-    delta: torch.Tensor, Delta, weighted: bool = False, check_tol: float = 0.0, check_slack=0.0
+    delta: torch.Tensor, Delta, weighted: bool = False, check_tol: float = 0.0, check_slack=0.0,
+    per_row: bool = False,
 ):
     """Fused forward epilogue: f-clip + pair-weighted count + inverse twiddle.
 
@@ -193,15 +214,19 @@ def fwd_epilogue_fused(
     False).
 
     Returns ``(clipped, displacement, Z, violations)``: ``Z`` has shape
-    ``(..., N/2)``, contiguous, ready for ``torch.fft.ifftn``; ``violations``
-    is an int32 0-d tensor.  CPU tensors take :func:`fwd_epilogue_plain`;
-    CUDA tensors launch ``csrc/rfft.cu`` (rank 1 to 4, complex64).
+    ``(..., N/2)``, contiguous, ready for ``torch.fft.ifftn`` (``ifft`` over
+    the last axis with ``per_row``); ``violations`` is an int32 0-d tensor,
+    or one count per row with ``per_row`` (see the module docstring).  CPU
+    tensors take :func:`fwd_epilogue_plain`; CUDA tensors launch
+    ``csrc/rfft.cu`` (complex64; rank 1 to 4 for the whole-field mode).
     """
     if delta.shape[-1] < 2:
         raise ValueError("the pack trick needs a half-spectrum of at least 2 columns")
     if delta.device.type == "cpu":
-        return fwd_epilogue_plain(delta, Delta, weighted, check_tol, check_slack)
+        return fwd_epilogue_plain(delta, Delta, weighted, check_tol, check_slack, per_row)
     build.check_cuda(delta, "delta", torch.complex64)
+    if per_row:
+        return _fwd_epilogue_rows(delta, Delta, weighted, check_tol, check_slack)
     if not 1 <= delta.ndim <= 4:
         raise ValueError(f"the CUDA forward epilogue takes rank 1 to 4, got {delta.ndim}")
     lead = (1,) * (4 - delta.ndim) + tuple(delta.shape[:-1])  # (d0, d1, d2)
@@ -224,6 +249,27 @@ def fwd_epilogue_fused(
     return clipped, edits, Z, viol
 
 
+def _fwd_epilogue_rows(delta: torch.Tensor, Delta, weighted: bool, check_tol: float, check_slack):
+    """The per-pencil launch of :func:`fwd_epilogue_fused` (CUDA tensors)."""
+    h = delta.shape[-1]
+    operand, scalar, mode = build.bound_operand(Delta, delta.shape, delta.device, rows=True)
+    tol1, slack = threshold_scalars(check_tol, check_slack)
+    clipped = torch.empty_like(delta)
+    edits = torch.empty_like(delta)
+    Z = torch.empty(tuple(delta.shape[:-1]) + (h - 1,), dtype=delta.dtype, device=delta.device)
+    viol = torch.zeros(delta.shape[:-1], dtype=torch.int32, device=delta.device)
+    w_inv = _w_inv_tensor(2 * (h - 1), str(delta.device))
+    err = build.library("rfft").rfft_fwd_epilogue_rows_launch(
+        delta.data_ptr(), operand.data_ptr() if mode else None, scalar, int(mode == 2),
+        w_inv.data_ptr(), tol1, slack, int(weighted), viol.numel(), h,
+        clipped.data_ptr(), edits.data_ptr(), Z.data_ptr(), viol.data_ptr(),
+        torch.cuda.current_stream(delta.device).cuda_stream,
+    )
+    build.check(err, "rfft_fwd_epilogue_rows")
+    launches["rfft_fwd_epilogue_rows"] += 1
+    return clipped, edits, Z, viol
+
+
 def unpack_sclip_plain(z: torch.Tensor, E, shape: Tuple[int, ...]):
     """Plain twin of :func:`unpack_sclip_fused`: de-interleave, then clip."""
     x = _interleave_last(z.real, z.imag).reshape(shape)
@@ -236,7 +282,8 @@ def unpack_sclip_fused(z: torch.Tensor, E, shape: Tuple[int, ...]):
     ``z`` (complex64, ``(..., N/2)``, contiguous) holds the even/odd spatial
     samples of the ``shape``-sized field as its Re/Im parts, so its real view
     is the field itself.  ``E`` is a scalar or a field-shaped grid in natural
-    layout.  Returns ``(eps_clipped, displacement)``, real float32 of
+    layout, or one value per row (shape ``shape[:-1] + (1,)``, the per-pencil
+    mode).  Returns ``(eps_clipped, displacement)``, real float32 of
     ``shape``.
     """
     if z.device.type == "cpu":
@@ -244,5 +291,5 @@ def unpack_sclip_fused(z: torch.Tensor, E, shape: Tuple[int, ...]):
     build.check_cuda(z, "z", torch.complex64)
     x = torch.view_as_real(z).reshape(shape)
     out, edit = scube_launch(x, E)
-    launches["unpack_sclip"] += 1
+    launches["unpack_sclip_rows" if build.is_row_bound(E, x.shape) else "unpack_sclip"] += 1
     return out, edit

@@ -1,7 +1,10 @@
 """Fused s-cube projection (paper §IV-D ProjectOntoSCube): CUDA kernel + twin.
 
 Replaces ``repro/kernels/scube`` (the ``_scube_kernel`` Pallas kernel and its
-``project_scube_fused`` wrapper).  The kernel is ``csrc/scube.cu``.
+``project_scube_fused`` wrapper).  The kernel is ``csrc/scube.cu``.  A bound of
+shape ``eps.shape[:-1] + (1,)`` — one ``E`` per row, the batched pencil
+loop's layout — launches the kernel's per-pencil mode, which reads a vector
+of row bounds instead of a field-sized grid, and counts under ``scube_rows``.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 from repro_torch.kernels import build
 
 #: kernel launches by wrapper (reset it to 0 to count a run's launches)
-launches = {"scube": 0}
+launches = {"scube": 0, "scube_rows": 0}
 
 
 def project_scube_plain(eps: torch.Tensor, E) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -31,16 +34,18 @@ def project_scube_plain(eps: torch.Tensor, E) -> Tuple[torch.Tensor, torch.Tenso
 def scube_launch(x: torch.Tensor, E) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``scube_launch`` on a contiguous float32 CUDA tensor; no count.
 
-    The counting wrappers (:func:`project_scube_fused` and the pack-trick
-    inverse epilogue) call this and add to their own counters.
+    A per-row ``E`` (:func:`repro_torch.kernels.build.is_row_bound`) runs the
+    per-pencil mode.  The counting wrappers (:func:`project_scube_fused` and
+    the pack-trick inverse epilogue) call this and add to their own counters.
     """
     build.check_cuda(x, "eps", torch.float32)
-    grid, scalar, pointwise = build.bound_operand(E, x.shape, x.device)
+    rows = build.is_row_bound(E, x.shape)
+    operand, scalar, mode = build.bound_operand(E, x.shape, x.device, rows=rows)
     out = torch.empty_like(x)
     edit = torch.empty_like(x)
     err = build.library("scube").scube_launch(
-        x.data_ptr(), grid.data_ptr() if pointwise else None, scalar, pointwise,
-        out.data_ptr(), edit.data_ptr(), x.numel(),
+        x.data_ptr(), operand.data_ptr() if mode else None, scalar, mode,
+        x.shape[-1] if rows else 1, out.data_ptr(), edit.data_ptr(), x.numel(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "scube")
@@ -56,6 +61,7 @@ def project_scube_fused(eps: torch.Tensor, E) -> Tuple[torch.Tensor, torch.Tenso
     """
     if eps.device.type == "cpu":
         return project_scube_plain(eps, E)
-    out, edit = scube_launch(eps.to(torch.float32), E)
-    launches["scube"] += 1
+    x = eps.to(torch.float32)
+    out, edit = scube_launch(x, E)
+    launches["scube_rows" if build.is_row_bound(E, x.shape) else "scube"] += 1
     return out.to(eps.dtype), edit.to(eps.dtype)

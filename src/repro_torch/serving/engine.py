@@ -1,10 +1,10 @@
 """Batched decode engine over a request queue.
 
 Flow per admitted batch: front-pad the prompts to a common length ->
-prefill (one call over the whole prompt) -> greedy decode steps, one token
-per step.  The reference's optional FFCz KV-cache compression needs the
-batched correction backend, which is not ported: a config that asks for it
-raises ``NotImplementedError`` at ``step``.
+prefill (one call over the whole prompt) -> optional FFCz KV-cache
+compression (``cfg.compression.kv_cache_compression``, through the shared
+:func:`repro_torch.core.engine.default_engine` of the model's device) ->
+greedy decode steps, one token per step.
 """
 
 from __future__ import annotations
@@ -16,7 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.core.engine import default_engine
 from repro_torch.models.model import build_model
+from repro_torch.serving.kv_compress import compress_cache
 
 
 @dataclasses.dataclass
@@ -83,16 +85,13 @@ class ServingEngine:
         """Serve one admitted batch from the queue; returns completions."""
         if not self.queue:
             return []
-        if self.cfg.compression.kv_cache_compression:
-            raise NotImplementedError(
-                "KV-cache compression needs CorrectionEngine.correct (the batched backend), "
-                "which is not ported yet (ROADMAP.md Queue 1, slice 2)"
-            )
         reqs, self.queue = self.queue[: self.serve.max_batch], self.queue[self.serve.max_batch :]
         batch = self._make_batch(reqs)
         n_new = max(r.max_new_tokens for r in reqs)
         cache = self.bundle.init_cache(len(reqs), batch["tokens"].shape[1] + n_new)
         logits, cache = self._prefill(self.params, batch, cache)
+        if self.cfg.compression.kv_cache_compression and self.cfg.family != "ssm":
+            cache = compress_cache(cache, self.cfg.compression, engine=default_engine(self.device))
         outs = [torch.argmax(logits[:, -1], dim=-1)]
         for _ in range(n_new - 1):
             logits, cache = self._decode(self.params, outs[-1][:, None], cache)

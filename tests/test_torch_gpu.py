@@ -176,3 +176,113 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take():
         t_flash.flash_attention(q, q[:, :, :4], q[:, :, :4])
     with pytest.raises(NotImplementedError, match="backward"):
         t_flash.flash_attention(q.requires_grad_(), q, q)
+
+
+# -- slice 3: QuantizeEdits, the block transform, the per-pencil modes --------
+
+from repro_torch.core.blockwise import correct_batch  # noqa: E402
+from repro_torch.core.engine import CorrectionEngine  # noqa: E402
+from repro_torch.kernels.block_transform import ops as t_bt  # noqa: E402
+from repro_torch.kernels.block_transform.ref import block_transform_quantize_ref  # noqa: E402
+from repro_torch.kernels.quantize import ops as t_quantize  # noqa: E402
+from repro_torch.kernels.quantize.ref import quantize_edits_ref  # noqa: E402
+
+ROWS = [(7, 64), (300, 1024), (5, 18)]  # (rows, block)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pointwise", [False, True])
+@pytest.mark.parametrize("m", [8, 16, 24])
+@pytest.mark.parametrize("shape", [(1000,), (37, 29), (9, 11, 13)], ids=str)
+def test_quantize_matches_twin(shape, m, pointwise):
+    dev = _cuda()
+    rng = np.random.default_rng(m)
+    v = torch.from_numpy((rng.standard_normal(shape) * 0.05).astype(np.float32)).to(dev)
+    if pointwise:
+        b = rng.uniform(0.02, 0.08, shape).astype(np.float32)
+        b.reshape(-1)[::5] = 0.0
+        b = torch.from_numpy(b).to(dev)
+    else:
+        b = 0.05
+    before = t_quantize.launches["quantize"]
+    got = t_quantize.quantize_edits(v, b, m=m)
+    assert t_quantize.launches["quantize"] == before + 1
+    assert _same(got, quantize_edits_ref(v, b, m))
+    # out-of-range and NaN values saturate the same way in kernel and twin
+    wild = torch.tensor([1e30, -1e30, float("nan"), float("inf"), 3.5e-5], device=dev)
+    assert _same(t_quantize.quantize_edits(wild, 1e-6, m=m), quantize_edits_ref(wild, 1e-6, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [16, 64, 128])
+def test_block_transform_matches_twin(B):
+    dev = _cuda()
+    rng = np.random.default_rng(B)
+    x = torch.from_numpy(rng.lognormal(0.0, 1.0, (1037, B)).astype(np.float32)).to(dev)
+    q_mat, _ = np.linalg.qr(rng.standard_normal((B, B)))
+    mat = torch.from_numpy(q_mat.astype(np.float32)).to(dev)
+    before = t_bt.launches["block_transform"]
+    got = t_bt.block_transform_quantize(x, mat, 0.01)
+    assert t_bt.launches["block_transform"] == before + 1
+    assert _same((got,), (block_transform_quantize_ref(x, mat, 0.01),))
+    with pytest.raises(ValueError, match="B in"):
+        t_bt.block_transform_quantize(torch.zeros((4, 48), device=dev), torch.eye(48, device=dev), 0.01)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows_block", ROWS, ids=str)
+def test_per_pencil_modes_match_twins(rows_block):
+    dev = _cuda()
+    rows, n = rows_block
+    rng = np.random.default_rng(n)
+    eps = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32)).to(dev)
+    E = torch.from_numpy(rng.uniform(0.5, 1.5, (rows, 1)).astype(np.float32)).to(dev)
+    before = dict(t_scube.launches)
+    assert _same(t_scube.project_scube_fused(eps, E), t_scube.project_scube_plain(eps, E))
+    assert t_scube.launches["scube_rows"] == before["scube_rows"] + 1
+    delta = torch.fft.rfft(eps, dim=-1).contiguous()
+    D = torch.from_numpy(rng.uniform(1.0, 4.0, (rows, 1)).astype(np.float32)).to(dev)
+    for bound in (D, 2.5):
+        got = t_fcube.project_fcube_fused(delta, bound, n_last=n, check_tol=1e-5, per_row=True)
+        want = t_fcube.project_fcube_plain(delta, bound, n_last=n, check_tol=1e-5, per_row=True)
+        assert _same(got, want) and got[2].shape == (rows,) and int(got[2].sum()) > 0
+        if n % 2 == 0:
+            got = t_rfft.fwd_epilogue_fused(delta, bound, weighted=True, check_tol=1e-5, per_row=True)
+            want = t_rfft.fwd_epilogue_plain(delta, bound, weighted=True, check_tol=1e-5, per_row=True)
+            assert _same(got, want) and got[3].shape == (rows,)
+            z = torch.fft.ifft(got[2], dim=-1).contiguous()
+            assert _same(t_rfft.unpack_sclip_fused(z, E, (rows, n)), t_rfft.unpack_sclip_plain(z, E, (rows, n)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [256, 255])
+@pytest.mark.parametrize("impl", ["xla", "packed", "pallas"])
+def test_correct_batch_on_the_card_matches_the_cpu(impl, block):
+    dev = _cuda()
+    rng = np.random.default_rng(block)
+    E, D = [0.03, 0.05, 0.04], [0.2, 0.3, 0.25]
+    # initial errors inside each s-cube, as a base compressor's are
+    tensors = [np.clip(rng.standard_normal(s) * 0.02, -e, e).astype(np.float32)
+               for s, e in zip(((3, 500), (1000,), (7, 9, 11)), E)]
+    got, gs = correct_batch([torch.from_numpy(t).to(dev) for t in tensors], E, D, block=block,
+                            max_iters=30, fft_impl=impl)
+    want, ws = correct_batch([torch.from_numpy(t) for t in tensors], E, D, block=block,
+                             max_iters=30, fft_impl=impl)
+    assert bool(gs.converged.all()) and bool(ws.converged.all())
+    # cuFFT and the CPU FFT round differently, so the trajectories are held
+    # bound-class: every pencil converges on both devices within its bounds
+    # (the last s-clip clips to the float32 E)
+    for g, w, e in zip(got, want, E):
+        assert float(torch.abs(g).max()) <= np.float32(e) and float(torch.abs(w).max()) <= np.float32(e)
+
+
+@pytest.mark.gpu
+def test_engine_backends_agree_on_the_card():
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    tensors = [(rng.standard_normal(s) * 0.02).astype(np.float32) for s in ((4, 1024), (3000,))]
+    outs = [CorrectionEngine(backend=b, fft_impl="pallas", device=dev).correct(
+        [torch.from_numpy(t).to(dev) for t in tensors], 0.03, 0.2, block=1024, max_iters=30)
+        for b in ("local", "batched")]
+    for a, b in zip(outs[0][0], outs[1][0]):
+        assert torch.equal(a, b)

@@ -136,3 +136,84 @@ def test_mirror_and_twiddles_identical(shape):
                 assert got.dtype == want.dtype and np.array_equal(got, want)
     for s in [(4,), (5,), (1,), (3, 8), (3, 7), ()]:
         assert t_rfft.supports_packed(s) == r_rfft.supports_packed(s)
+
+
+# -- per-pencil modes: the batched loop's vmap of the reference kernels -------
+
+import jax  # noqa: E402
+
+ROWS = [(6, 18), (5, 17), (4, 64), (3, 2)]  # (rows, block): even, odd, the KV shape's kind, tiny
+
+
+def _rows(rows, n, seed):
+    rng = np.random.default_rng(seed)
+    eps = rng.standard_normal((rows, n)).astype(np.float32)
+    return rng, eps, np.fft.rfft(eps, axis=-1).astype(np.complex64)
+
+
+@pytest.mark.parametrize("rows_block", ROWS, ids=str)
+def test_scube_per_row_matches_vmapped_reference(rows_block):
+    rows, n = rows_block
+    rng, eps, _ = _rows(rows, n, 20)
+    E = rng.uniform(0.3, 1.5, rows).astype(np.float32)
+    got = t_scube.project_scube_fused(torch.from_numpy(eps), torch.from_numpy(E[:, None]))
+    want = jax.vmap(r_scube.project_scube_fused)(jnp.asarray(eps), jnp.asarray(E))
+    assert all(_eq(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("slack", [0.0, 0.3])
+@pytest.mark.parametrize("rows_block", ROWS, ids=str)
+def test_fcube_per_row_matches_vmapped_reference(rows_block, slack):
+    rows, n = rows_block
+    rng, _, delta = _rows(rows, n, 21)
+    D = rng.uniform(0.5, 4.0, rows).astype(np.float32)
+    got = t_fcube.project_fcube_fused(
+        torch.from_numpy(delta), torch.from_numpy(D[:, None]), n_last=n,
+        check_tol=1e-5, check_slack=slack, per_row=True,
+    )
+    want = jax.vmap(lambda d, b: r_fcube.project_fcube_fused(
+        d, b, weight=r_pair_weights((n,)), check_tol=1e-5, check_slack=slack))(
+        jnp.asarray(delta), jnp.asarray(D))
+    assert _eq(got[0], want[0]) and _eq(got[1], want[1])
+    assert got[2].dtype == torch.int32 and _eq(got[2], want[2]) and int(got[2].sum()) > 0
+
+
+@pytest.mark.parametrize("rows_block", [rb for rb in ROWS if rb[1] % 2 == 0], ids=str)
+def test_fwd_epilogue_per_row_matches_vmapped_reference(rows_block):
+    """Clip, displacement and per-row counts bitwise; Z at rtol 1e-6 (the
+    reference's XLA CPU build contracts the twiddle products; ROADMAP Queue 3)."""
+    rows, n = rows_block
+    rng, _, delta = _rows(rows, n, 22)
+    D = rng.uniform(0.5, 4.0, rows).astype(np.float32)
+    got = t_rfft.fwd_epilogue_fused(
+        torch.from_numpy(delta), torch.from_numpy(D[:, None]), weighted=True, check_tol=1e-5,
+        per_row=True,
+    )
+    want = jax.vmap(lambda d, b: r_rfft.fwd_epilogue_fused(
+        d, b, weight=r_pair_weights((n,)), check_tol=1e-5))(jnp.asarray(delta), jnp.asarray(D))
+    assert _eq(got[0], want[0]) and _eq(got[1], want[1]) and _eq(got[3], want[3])
+    assert got[2].shape == (rows, n // 2)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2])[:, : n // 2], rtol=1e-6, atol=1e-6)
+    # the mirror stays within each row: a row's Z depends on that row alone
+    solo = t_rfft.fwd_epilogue_fused(torch.from_numpy(delta[1:2]), float(D[1]), weighted=True,
+                                      check_tol=1e-5, per_row=True)
+    assert torch.equal(solo[2][0], got[2][1])
+
+
+@pytest.mark.parametrize("rows_block", [rb for rb in ROWS if rb[1] % 2 == 0], ids=str)
+def test_unpack_sclip_per_row_matches_vmapped_reference(rows_block):
+    rows, n = rows_block
+    rng = np.random.default_rng(23)
+    z = (rng.standard_normal((rows, n // 2)) + 1j * rng.standard_normal((rows, n // 2))).astype(np.complex64)
+    E = rng.uniform(0.3, 1.2, rows).astype(np.float32)
+    got = t_rfft.unpack_sclip_fused(torch.from_numpy(z), torch.from_numpy(E[:, None]), (rows, n))
+    want = jax.vmap(lambda t, e: r_rfft.unpack_sclip_fused(t, e, (n,)))(jnp.asarray(z), jnp.asarray(E))
+    assert all(_eq(g, w) for g, w in zip(got, want))
+
+
+def test_per_row_bound_must_have_the_row_shape():
+    from repro_torch.kernels import build
+
+    with pytest.raises(ValueError, match="per-row bound"):
+        build.bound_operand(torch.ones(4, 2), (4, 9), "cpu", rows=True)
+    assert build.is_row_bound(torch.ones(4, 1), (4, 9)) and not build.is_row_bound(1.0, (4, 9))

@@ -218,12 +218,10 @@ def test_plan_conversion_round_trips_roi():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CorrectionEngine(backend="batched", device="cpu")
-    eng = CorrectionEngine(device="cpu")
-    for fn in (eng.plan_pencils, eng.correct, eng.correct_async, eng.encode_pencils):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 5"):
+        CorrectionEngine(backend="sharded", device="cpu")
+    for backend in ("local", "batched"):
+        assert CorrectionEngine(backend=backend, device="cpu").backend == backend
 
 
 def test_async_handle_is_idempotent():

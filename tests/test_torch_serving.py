@@ -32,9 +32,12 @@ ARCH = "qwen2-0.5b"
 MARGIN = 1e-3
 
 
-def _engines(impl, max_batch, seed=0):
+def _engines(impl, max_batch, seed=0, kv_compression=False):
     rcfg = r_get_smoke_config(ARCH, attention_impl=impl)
     cfg = get_smoke_config(ARCH, attention_impl=impl)
+    if kv_compression:
+        rcfg = dataclasses.replace(rcfg, compression=RCompressionConfig(kv_cache_compression=True))
+        cfg = dataclasses.replace(cfg, compression=CompressionConfig(kv_cache_compression=True))
     ref_params = jax.tree.map(np.asarray, r_build_model(rcfg).init(jax.random.PRNGKey(seed)))
     r = RServingEngine(rcfg, RServeConfig(max_batch=max_batch), params=ref_params)
     t = ServingEngine(cfg, ServeConfig(max_batch=max_batch),
@@ -137,13 +140,25 @@ def test_submit_validation_is_the_references():
     assert _errors(t, t.cfg) == _errors(r, r.cfg)
 
 
-def test_kv_compression_is_not_ported():
-    cfg = dataclasses.replace(get_smoke_config(ARCH), compression=CompressionConfig(kv_cache_compression=True))
-    assert dataclasses.asdict(cfg.compression) == dataclasses.asdict(RCompressionConfig(kv_cache_compression=True))
-    eng = ServingEngine(cfg, ServeConfig(max_batch=1), device="cpu")
-    eng.submit(np.arange(8), max_new_tokens=2)
-    with pytest.raises(NotImplementedError, match="CorrectionEngine.correct"):
-        eng.step()
+@pytest.mark.parametrize("impl, lengths, max_batch", [CASES[0], CASES[4]], ids=str)
+def test_engine_with_kv_compression_matches_reference(impl, lengths, max_batch):
+    """KV compression after prefill on both engines (the reference's default
+    engine: batched, fft_impl="xla"): per-step logits at atol 1e-4 with the
+    same token rule as without compression.  The compressed caches agree to
+    float32 rounding (test_torch_kv_compress.py), so the bar is unchanged."""
+    r, t = _engines(impl, max_batch, kv_compression=True)
+    assert dataclasses.asdict(t.cfg.compression) == dataclasses.asdict(r.cfg.compression)
+    rng = np.random.default_rng(7)
+    for n in lengths:
+        prompt = rng.integers(0, 256, n)
+        r.submit(prompt, max_new_tokens=4)
+        t.submit(prompt, max_new_tokens=4)
+    while r.queue:
+        r_logs, t_logs = _record(r), _record(t)
+        r_out, t_out = r.step(), t.step()
+        assert [o["uid"] for o in r_out] == [o["uid"] for o in t_out]
+        _compare_step(r_logs, t_logs, [o["tokens"] for o in r_out], [o["tokens"] for o in t_out])
+    assert not t.queue
 
 
 def test_engine_has_no_cpu_fallback():
@@ -158,3 +173,10 @@ def test_serve_cli_on_the_cpu(capsys):
                   "--max-batch", "2"])
     out = capsys.readouterr().out
     assert "served 3 requests" in out and out.count("uid=") == 3
+
+
+def test_serve_cli_with_kv_compression_on_the_cpu(capsys):
+    t_serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "2", "--max-new-tokens", "3",
+                  "--max-batch", "2", "--kv-compression"])
+    out = capsys.readouterr().out
+    assert "served 2 requests" in out and out.count("uid=") == 2

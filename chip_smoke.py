@@ -25,9 +25,11 @@ JSON line each (or more):
               field blockified as zfplike does (262,144 x 64, DCT-4 Kronecker
               matrix, q = 2E / gain^3 at E_rel = 1e-3) and at B = 128:
               bitwise vs its twin; the TF32-off matmul + round as library
-  8 lm        flash attention vs its twin (float32 atol 3e-5; bfloat16 one
-              ulp at each element's magnitude, 3e-5 floor) with kernel, twin
-              and scaled_dot_product_attention times; the forward loss of
+  8 lm        the flash library's SASS counts (HGMMA, TMA loads) and ptxas
+              registers and spills; flash attention vs its twin (float32 atol
+              3e-5; bfloat16 one ulp at each element's magnitude, 3e-5 floor)
+              at d = 64 and 128 with kernel, twin and
+              scaled_dot_product_attention times; the forward loss of
               qwen2-0.5b at 4x2048 tokens (24 kernel launches, against the
               naive impl within 1e-3); ServingEngine prefill + greedy decode
               of 8 requests, decode logits against a cache-less forward
@@ -45,6 +47,13 @@ JSON line each (or more):
 Any failure exits non-zero before the last line.  The script needs a CUDA
 card and the repository around it: without either it exits 2 and prints no
 result.
+
+    python3 chip_smoke.py --compare-lm OTHER_CHECKOUT
+
+runs only phase 8's LM part (forward loss, profile, serving with and
+without KV compression) of another checkout and of this one, each in a
+fresh process, in the order other, this, this, other, so that two trees
+are compared on one card in one run.
 """
 
 from __future__ import annotations
@@ -300,14 +309,47 @@ def causal_attention_flops(b, hq, sq, sk, d) -> int:
     return 4 * b * hq * d * pairs
 
 
-FLASH_CASES = (("prefill", 2048, 2048), ("suffix", 128, 2048), ("ragged", 1030, 1030))
+# (label, sq, sk, head dim)
+FLASH_CASES = (("prefill", 2048, 2048, 64), ("suffix", 128, 2048, 64), ("ragged", 1030, 1030, 64),
+               ("prefill_d128", 2048, 2048, 128))
 
 
-def phase_flash(dev, heads=(4, 14, 2, 64), lengths=FLASH_CASES):
+def flash_build_report():
+    """(SASS counts, per-kernel ptxas registers and spills) of the built
+    flash library: HGMMA is a wgmma, UTMALDG / UBLKCP a TMA load."""
+    import re
+
+    from repro_torch.kernels import build
+
+    log = build.build_log("flash_attention")
+    sass = subprocess.run([str(Path(build.nvcc()).parent / "cuobjdump"), "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+    kernels, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            d = re.search(r"Li(\d+)E", mangled)
+            name = ("flash_fwd_sm90" if "flash_fwd_sm90" in mangled else "flash_fwd_kernel") + \
+                f"<{d.group(1) if d else '?'}>"
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and name:
+            kernels.setdefault(name, {}).update(spill_stores=int(spill.group(1)),
+                                                spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            kernels.setdefault(name, {})["registers"] = int(regs.group(1))
+    return counts, kernels
+
+
+def phase_flash(dev, heads=(4, 14, 2), lengths=FLASH_CASES):
     """The flash-attention kernel against its twin at the LM phase's shapes
-    (``heads`` = (b, hq, hkv, d), qwen2-0.5b's at batch 4); returns the
-    summary record, whose main case is the first: the forward loss's
-    (4, 14, 2048, 64) bfloat16 attention."""
+    (``heads`` = (b, hq, hkv), qwen2-0.5b's at batch 4; each case of
+    ``lengths`` gives sq, sk and the head dim).  Returns the summary record,
+    whose main case is the first: the forward loss's (4, 14, 2048, 64)
+    bfloat16 attention."""
     import torch
     import torch.nn.functional as F
 
@@ -315,9 +357,9 @@ def phase_flash(dev, heads=(4, 14, 2, 64), lengths=FLASH_CASES):
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    b, hq, hkv, d = heads
+    b, hq, hkv = heads
     cases = []
-    for label, sq, sk in lengths:
+    for label, sq, sk, d in lengths:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
                        for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
@@ -329,7 +371,10 @@ def phase_flash(dev, heads=(4, 14, 2, 64), lengths=FLASH_CASES):
                     "kv": list(k.shape), "max_abs_err": err}
             if dtype == torch.bfloat16:
                 ok, ulps, n_over, worst = bf16_within_one_ulp(got, want)
-                case.update(max_ulps=ulps, n_over_one_ulp=n_over, largest_value_over_one_ulp=worst)
+                # the split P's tensor-core floor: P.V twice (hi and lo), 1.5x the operations
+                case.update(max_ulps=ulps, n_over_one_ulp=n_over, largest_value_over_one_ulp=worst,
+                            bound_ms_split_p_tensor=1.5 * causal_attention_flops(b, hq, sq, sk, d)
+                            / BF16_TENSOR_FLOP_PER_S * 1e3)
                 require(ok, f"flash_attention {label} bf16: more than one ulp + 3e-5 from the twin")
             else:
                 require(err <= 3e-5, f"flash_attention {label} f32: max |kernel - twin| {err} > 3e-5")
@@ -358,12 +403,14 @@ def phase_flash(dev, heads=(4, 14, 2, 64), lengths=FLASH_CASES):
             del q, k, v, got, want
     emit("lm", part="kernel", kernel="flash_attention", cases=cases)
     main = cases[0]
+    d128 = next((c for c in cases if c["dtype"] == "bfloat16" and c["q"][-1] == 128), None)
     return {
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:41", "launches": 0,
         "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"], "bound_ms_fp32_cuda_cores": main["bound_ms_fp32_cuda_cores"],
+        "library_ms": main["library_ms"],
+        "ms_d128": d128 and d128["ms"], "library_ms_d128": d128 and d128["library_ms"],
     }
 
 
@@ -481,7 +528,7 @@ def profile_lm(bundle, params, batch):
         launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
         return {"wall_ms": wall * 1e3, "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / (wall * 1e3)),
                 "kernel_launches": launches, "top_device_ms": [[k[:60], v] for k, v in top],
-                "flash_kernel_ms": sum(v for k, v in device.items() if "flash_fwd_kernel" in k)}
+                "flash_kernel_ms": sum(v for k, v in device.items() if "flash_fwd" in k)}
 
     forward = traced(lambda: float(bundle.loss(params, batch)))
     tokens = batch["tokens"][:, :380]
@@ -933,6 +980,19 @@ def run_case(phase, label, x, cfg, dev, must_launch, keep=None):
     return counts, st.iterations
 
 
+def compare_lm(other: Path) -> int:
+    """Phase 8's LM part of checkout ``other`` and of this one, alternated
+    other, this, this, other; each run prints its own ``lm`` lines."""
+    run = ("import sys, torch; root = sys.argv[1]; sys.path[:0] = [root, root + '/src']\n"
+           "import chip_smoke\nfrom repro_torch.kernels import build\n"
+           "torch.backends.cuda.matmul.allow_tf32 = False\ntorch.backends.cudnn.allow_tf32 = False\n"
+           "build.build_all()\nchip_smoke.phase_lm('cuda', {})\n")
+    for root in (other.resolve(), ROOT, ROOT, other.resolve()):
+        emit("compare_lm", root=str(root))
+        subprocess.run([sys.executable, "-c", run, str(root)], check=True, timeout=900)
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
@@ -943,6 +1003,11 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    if sys.argv[1:2] == ["--compare-lm"] and len(sys.argv) == 3:
+        return compare_lm(Path(sys.argv[2]))
+    if sys.argv[1:]:
+        print("usage: chip_smoke.py [--compare-lm OTHER_CHECKOUT]", file=sys.stderr)
         return 2
 
     from repro_torch.compressors import get_compressor
@@ -1009,6 +1074,12 @@ def main() -> int:
     del edits
 
     # 8: the qwen2-0.5b dense LM at full width, through the flash kernel
+    sass, ptxas = flash_build_report()
+    emit("lm", part="flash_build", sass=sass, ptxas=ptxas)
+    require(sass["HGMMA"] > 0, "flash_attention: no HGMMA (wgmma) in the library's SASS")
+    require(sass["UTMALDG"] + sass["UBLKCP"] > 0, "flash_attention: no TMA load in the library's SASS")
+    require(all(k.get("spill_stores", 1) == 0 and k.get("spill_loads", 1) == 0 for k in ptxas.values())
+            and len(ptxas) == 4, f"flash_attention: ptxas reports spills or misses a kernel: {ptxas}")
     records["flash_attention"] = phase_flash(dev)
     cfg_lm, params = phase_lm(dev, records["flash_attention"])
 

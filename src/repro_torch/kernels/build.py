@@ -6,11 +6,13 @@ Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
-into ``build/repro_torch/`` at the root of the checkout.  The library's file
-name carries a hash of its sources and flags, so an edited source rebuilds and
-an unchanged one loads as is.  Nothing builds at import: the first launch of a
-kernel builds its library (or :func:`build_all` builds every one, one ``nvcc``
-process per source, all started together).
+plus the source's own flags in :data:`SOURCE_FLAGS`, into ``build/repro_torch/``
+at the root of the checkout.  The library's file name carries a hash of its
+source, every ``csrc/*.cuh`` header and its flags, so an edited source or
+header rebuilds and an unchanged one loads as is; the compiler's output is
+kept beside it (:func:`build_log`).  Nothing builds at import: the first
+launch of a kernel builds its library (or :func:`build_all` builds every one,
+one ``nvcc`` process per source, all started together).
 
 The module also holds the launch plumbing every wrapper shares: operand
 checks (:func:`check_cuda`), bound operands (:func:`bound_operand`) and the
@@ -39,8 +41,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-#: one shared library per source (every source includes csrc/common.cuh)
+#: one shared library per source (each includes csrc/common.cuh or csrc/sm90.cuh)
 SOURCES = ("scube", "fcube", "rfft", "flash_attention", "quantize", "block_transform")
+#: flags of one source only: ptxas's register and spill report of the flash kernels
+SOURCE_FLAGS = {"flash_attention": ("-Xptxas", "-v")}
 
 _P, _F, _I, _L = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
 #: argtypes of each library's launchers (pointers and the stream as c_void_p)
@@ -80,23 +84,37 @@ def nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def flags(name: str) -> Tuple[str, ...]:
+    """The nvcc flags of source ``name``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
+def library_path(name: str) -> Path:
+    """Where library ``name`` is (or will be) built for its current sources."""
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed when it built library ``name`` (building it first
+    if needed)."""
+    library(name)
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def _start(name: str) -> Optional[tuple]:
     """Start nvcc for ``name`` unless its library is built; (proc, tmp, out)."""
-    out = _lib_path(name)
+    out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=out.name, suffix=".tmp", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
@@ -109,6 +127,7 @@ def _finish(name: str, started: Optional[tuple]) -> None:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"repro_torch: nvcc failed for csrc/{name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent builder never sees half a file
 
 
@@ -132,7 +151,7 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             _finish(name, _start(name))
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = list(argtypes)
                 getattr(lib, fn).restype = ctypes.c_int

@@ -1,10 +1,12 @@
 """Causal GQA flash-attention forward: CUDA kernel wrapper + twin.
 
 Replaces ``repro/kernels/flash_attention`` (the ``_flash_kernel`` Pallas
-kernel and its ``flash_attention`` wrapper).  The kernel is
-``csrc/flash_attention.cu``; its plain twin is :func:`ref.attention_ref`.
-The reference pads sq and sk up to its block sizes; the kernel masks the
-ragged edges itself, so the wrapper copies nothing.
+kernel and its ``flash_attention`` wrapper).  The kernels are in
+``csrc/flash_attention.cu``: bfloat16 runs on the tensor cores (wgmma fed by
+TMA), float32 on the CUDA cores; their plain twin is
+:func:`ref.attention_ref`.  The reference pads sq and sk up to its block
+sizes; the kernels mask the ragged edges themselves, so the wrapper copies
+nothing.
 """
 
 from __future__ import annotations
@@ -35,9 +37,10 @@ def flash_attention(
     """Causal GQA attention; shapes (b, hq, sq, d) / (b, hkv, sk, d).
 
     CPU tensors take :func:`attention_ref`; CUDA tensors launch the kernel
-    (float32 or bfloat16, contiguous, d in :data:`HEAD_DIMS`) or raise.  The
-    kernel has no backward: a call that autograd would have to differentiate
-    raises instead of returning an output with no gradient.
+    (float32 or bfloat16, contiguous, d in :data:`HEAD_DIMS`; bfloat16
+    operands 16-byte aligned, as TMA reads them) or raise.  The kernel has no
+    backward: a call that autograd would have to differentiate raises
+    instead of returning an output with no gradient.
     """
     if causal and q.shape[2] > k.shape[2]:
         raise ValueError("suffix-causal attention requires sq <= sk")
@@ -59,6 +62,11 @@ def flash_attention(
         raise ValueError(f"GQA requires hq % hkv == 0, got hq={hq}, hkv={hkv}")
     if sk == 0:
         raise ValueError("attention over an empty kv sequence")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned for the TMA loads, "
+                                 f"got address {t.data_ptr():#x}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
@@ -69,6 +77,8 @@ def flash_attention(
         b, hq, hkv, sq, sk, d, _DTYPES[q.dtype], scale, int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if err < 0:
+        raise RuntimeError(f"repro_torch: flash_attention: cuTensorMapEncodeTiled failed with CUresult {-err}")
     build.check(err, "flash_attention")
     launches["flash_attention"] += 1
     return out

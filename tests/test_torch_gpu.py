@@ -121,8 +121,10 @@ def _bf16_within_one_ulp(a, b, floor=3e-5):
 
 
 # (b, hq, hkv, sq, sk): GQA groups 1, 2 and 7, ragged lengths, suffix queries
+# (sk = 333 is no multiple of the bf16 kernel's 128-row K/V tile), and one
+# qwen2-0.5b layer's heads at full length
 FLASH_CASES = [(1, 4, 4, 8, 8), (2, 4, 2, 37, 37), (1, 14, 2, 130, 130), (2, 2, 1, 16, 300),
-               (1, 7, 1, 1030, 1030), (1, 2, 2, 1, 77)]
+               (1, 7, 1, 1030, 1030), (1, 2, 2, 1, 77), (2, 7, 1, 77, 333), (1, 14, 2, 2048, 2048)]
 
 
 @pytest.mark.gpu
@@ -160,6 +162,124 @@ def test_flash_attention_non_causal_matches_twin(dtype):
         assert float(torch.max(torch.abs(got - want))) <= 3e-5
     else:
         assert _bf16_within_one_ulp(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nan_head", [(0, 1), (1, 0)], ids=str)
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_nan_head_stays_in_its_head(d, nan_head):
+    """NaN in one (batch, kv head) of K and V reaches only the query heads of
+    that group.  The head just before it in memory is clean: a K/V tile that
+    read past that head's last row (sk = 200 is no multiple of the 128-row
+    tile) would take the NaN head's first rows, and 0 * NaN in P.V would
+    carry them into its output."""
+    dev = _cuda()
+    b, hq, hkv, sq, sk = 2, 4, 2, 70, 200
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, torch.bfloat16)
+               for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    nb, nh = nan_head
+    k[nb, nh] = float("nan")
+    v[nb, nh] = float("nan")
+    got = t_flash.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    group = slice(nh * (hq // hkv), (nh + 1) * (hq // hkv))  # the query heads that read it
+    clean = torch.ones(b, hq, dtype=torch.bool)
+    clean[nb, group] = False
+    assert not torch.isfinite(got[nb, group]).any()
+    assert torch.isfinite(got[clean]).all()
+    assert _bf16_within_one_ulp(got[clean], attention_ref(q, k, v)[clean])
+
+
+#: the line of csrc/flash_attention.cu whose removal leaves P = bf16(p) alone
+SPLIT_P_LO_LINE = "        wgmma_rs<D>(o, p_lo[kk], dv, 1);\n"
+
+
+def _bf16_ulp_report(a, b):
+    """Elements more than one bfloat16 ulp apart, the largest distance in
+    ulps and the largest |a - b|."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    mag = torch.maximum(a.abs(), b.abs())
+    _, e = torch.frexp(mag)
+    ulp = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), e - 8), torch.zeros_like(mag))
+    diff = (a - b).abs()
+    ulps = torch.where(ulp > 0, diff / ulp, torch.zeros_like(diff))
+    return {"n_over_one_ulp": int((diff > ulp).sum()), "max_ulps": float(ulps.max()),
+            "max_abs_err": float(diff.max())}
+
+
+def _cuda_ms(fn, reps=20):
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_split_p_holds_the_bar_a_single_bf16_p_misses(d, tmp_path):
+    """Why the bf16 kernel splits P into bf16 hi and lo halves: the same
+    source rebuilt without the P_lo product misses the bar at the forward
+    loss's shape, (4, 14, 2048, d).  Both variants' errors and times are
+    printed (``pytest -rP`` shows them)."""
+    import ctypes
+    import json
+    import math
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    dev = _cuda()
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert src.count(SPLIT_P_LO_LINE) == 1, "the P_lo product line moved"
+    (tmp_path / "flash_attention.cu").write_text(src.replace(SPLIT_P_LO_LINE, ""))
+    lib = tmp_path / "libflash_attention_single_p.so"
+    subprocess.run([build.nvcc(), *build.flags("flash_attention"), "-I", str(build.CSRC), "-o", str(lib),
+                    str(tmp_path / "flash_attention.cu")], check=True, capture_output=True, timeout=600)
+    launch = ctypes.CDLL(str(lib)).flash_attention_launch
+    launch.argtypes = list(build.SIGNATURES["flash_attention"]["flash_attention_launch"])
+    launch.restype = ctypes.c_int
+
+    b, hq, hkv, s = 4, 14, 2, 2048
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+               for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+
+    def single_p():
+        out = torch.empty_like(q)
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, s, d, 1,
+                     1.0 / math.sqrt(d), 1, torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        return out
+
+    want = attention_ref(q, k, v)
+    split, one = t_flash.flash_attention(q, k, v), single_p()
+    torch.cuda.synchronize()
+    report = {"shape": [b, hq, s, d],
+              "split_p": {**_bf16_ulp_report(split, want), "ms": _cuda_ms(lambda: t_flash.flash_attention(q, k, v))},
+              "single_p": {**_bf16_ulp_report(one, want), "ms": _cuda_ms(single_p)}}
+    print(json.dumps(report))
+    assert _bf16_within_one_ulp(split, want)
+    assert not _bf16_within_one_ulp(one, want)
+
+
+@pytest.mark.gpu
+def test_flash_attention_rejects_a_misaligned_bf16_operand():
+    dev = _cuda()
+    shape = (1, 2, 8, 64)
+    q = torch.zeros(shape, device=dev, dtype=torch.bfloat16)
+    buf = torch.zeros(q.numel() + 1, device=dev, dtype=torch.bfloat16)
+    shifted = buf[1:].view(shape)  # contiguous, 2 bytes past a 16-byte boundary
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = t_flash.launches["flash_attention"]
+    for args in ((shifted, q, q), (q, shifted, q), (q, q, shifted)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            t_flash.flash_attention(*args)
+    assert t_flash.launches["flash_attention"] == before
 
 
 @pytest.mark.gpu

@@ -23,8 +23,11 @@ JSON line each (or more):
               edits (m = 16), scalar and pointwise bound: bitwise vs its twin
   block_transform  repro_torch.kernels.block_transform_quantize on phase 4's
               field blockified as zfplike does (262,144 x 64, DCT-4 Kronecker
-              matrix, q = 2E / gain^3 at E_rel = 1e-3) and at B = 128:
-              bitwise vs its twin; the TF32-off matmul + round as library
+              matrix, q = 2E / gain^3 at E_rel = 1e-3), at B = 128, and at
+              B = 64 with 37 rows more (ragged tile, ring wrap): bitwise vs
+              its twin; the TF32-off matmul + round as library; beside the
+              bound the floor without FMA (bound_ms_unfused); ptxas registers
+              and spills (0 spills required)
   8 lm        the flash library's SASS counts (HGMMA, TMA loads) and ptxas
               registers and spills; flash attention vs its twin (float32 atol
               3e-5; bfloat16 one ulp at each element's magnitude, 3e-5 floor)
@@ -314,26 +317,22 @@ FLASH_CASES = (("prefill", 2048, 2048, 64), ("suffix", 128, 2048, 64), ("ragged"
                ("prefill_d128", 2048, 2048, 128))
 
 
-def flash_build_report():
-    """(SASS counts, per-kernel ptxas registers and spills) of the built
-    flash library: HGMMA is a wgmma, UTMALDG / UBLKCP a TMA load."""
+def ptxas_report(library, entries):
+    """Per-kernel ptxas registers and spills from the build log of
+    ``library`` (built with ``-Xptxas -v``): each entry function whose name
+    holds one of ``entries`` (tried in order) as ``entry<N>``, N its first
+    integer template argument."""
     import re
 
     from repro_torch.kernels import build
 
-    log = build.build_log("flash_attention")
-    sass = subprocess.run([str(Path(build.nvcc()).parent / "cuobjdump"), "-sass",
-                           str(build.library_path("flash_attention"))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
     kernels, name = {}, None
-    for line in log.splitlines():
+    for line in build.build_log(library).splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             mangled = entry.group(1)
             d = re.search(r"Li(\d+)E", mangled)
-            name = ("flash_fwd_sm90" if "flash_fwd_sm90" in mangled else "flash_fwd_kernel") + \
-                f"<{d.group(1) if d else '?'}>"
+            name = next((e for e in entries if e in mangled), mangled) + f"<{d.group(1) if d else '?'}>"
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name:
             kernels.setdefault(name, {}).update(spill_stores=int(spill.group(1)),
@@ -341,7 +340,27 @@ def flash_build_report():
         regs = re.search(r"Used (\d+) registers", line)
         if regs and name:
             kernels.setdefault(name, {})["registers"] = int(regs.group(1))
-    return counts, kernels
+    return kernels
+
+
+def no_spills(ptxas, count) -> bool:
+    """True when ``ptxas`` reports ``count`` kernels, none of them spilling."""
+    return len(ptxas) == count and all(
+        k.get("spill_stores", 1) == 0 and k.get("spill_loads", 1) == 0 for k in ptxas.values())
+
+
+def flash_build_report():
+    """(SASS counts, per-kernel ptxas registers and spills) of the built
+    flash library: HGMMA is a wgmma, UTMALDG / UBLKCP a TMA load."""
+    import re
+
+    from repro_torch.kernels import build
+
+    sass = subprocess.run([str(Path(build.nvcc()).parent / "cuobjdump"), "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+    return counts, ptxas_report("flash_attention", ("flash_fwd_sm90", "flash_fwd_kernel"))
 
 
 def phase_flash(dev, heads=(4, 14, 2), lengths=FLASH_CASES):
@@ -677,8 +696,13 @@ def phase_block_transform(dev, x, E_rel=1e-3):
     blockified as ``compressors/zfplike.py`` does (4^3 blocks, B = 64), the
     DCT-4 matrix Kronecker-expanded, q = 2E / gain^3; then B = 128 at the same
     row count (each block beside its neighbour, the matrix paired with a
-    2-point Haar step).  Kernel vs twin bitwise; the TF32-off matmul + round
-    as library, with the count of codes that differ from it."""
+    2-point Haar step); then B = 64 at 37 rows more (a ragged last tile, the
+    ring wrapping on every SM).  Kernel vs twin bitwise; the TF32-off matmul
+    + round as library, with the count of codes that differ from it.  Each
+    case carries, beside the function's bound, ``bound_ms_unfused``: the
+    floor of a kernel that may not contract a product into an FMA (one
+    float32 instruction per flop).  The library's ptxas report: 0 spills in
+    all four instantiations."""
     import numpy as np
     import torch
 
@@ -694,7 +718,8 @@ def phase_block_transform(dev, x, E_rel=1e-3):
     m128 = np.kron(np.array([[1.0, 1.0], [1.0, -1.0]]) / np.sqrt(2.0), m64)
     E = E_rel * float(np.ptp(x))
     q = 2.0 * E / zfp._gain1**3
-    runs = (("zfplike 4^3", b64, m64), ("B=128", torch.cat([b64, torch.roll(b64, 1, 0)], 1).contiguous(), m128))
+    runs = (("zfplike 4^3", b64, m64), ("B=128", torch.cat([b64, torch.roll(b64, 1, 0)], 1).contiguous(), m128),
+            ("zfplike 4^3 + 37 rows", torch.cat([b64, b64[:37]]).contiguous(), m64))
     runs = [(label, blocks, torch.from_numpy(mat.astype(np.float32)).to(dev)) for label, blocks, mat in runs]
     read = reset_launches()
     outs = [kernels.block_transform_quantize(blocks, mat, q) for _, blocks, mat in runs]
@@ -719,11 +744,16 @@ def phase_block_transform(dev, x, E_rel=1e-3):
             "plain_ms": cuda_time_ms(lambda: block_transform_quantize_ref(blocks, mat, q), reps=3, warmup=1),
             "library_ms": cuda_time_ms(lambda: library(blocks, mat)),
         }, bytes_moved=4 * nb * B + 4 * B * B + 4 * nb * B, flops=2 * nb * B * B))
-    emit("block_transform", launches=launches, cases=cases)
+        cases[-1]["bound_ms_unfused"] = max(cases[-1]["bytes"] / HBM_BYTES_PER_S,
+                                            2 * cases[-1]["flops"] / FP32_FLOP_PER_S) * 1e3
+    ptxas = ptxas_report("block_transform", ("block_transform_kernel",))
+    emit("block_transform", launches=launches, cases=cases, ptxas=ptxas)
     require(launches == len(runs), f"block_transform: {launches} launches, want {len(runs)}")
-    return kernel_record("block_transform", "src/repro_torch/csrc/block_transform.cu",
-                         "src/repro/kernels/block_transform/kernel.py:23", cases, launches,
-                         library_ms=cases[0]["library_ms"])
+    require(no_spills(ptxas, 4), f"block_transform: ptxas reports spills or misses a kernel: {ptxas}")
+    return {**kernel_record("block_transform", "src/repro_torch/csrc/block_transform.cu",
+                            "src/repro/kernels/block_transform/kernel.py:23", cases, launches,
+                            library_ms=cases[0]["library_ms"]),
+            "ms_b128": cases[1]["ms"], "library_ms_b128": cases[1]["library_ms"]}
 
 
 def phase_pencil_kernels(dev, rows=49152, block=1024):
@@ -1078,8 +1108,7 @@ def main() -> int:
     emit("lm", part="flash_build", sass=sass, ptxas=ptxas)
     require(sass["HGMMA"] > 0, "flash_attention: no HGMMA (wgmma) in the library's SASS")
     require(sass["UTMALDG"] + sass["UBLKCP"] > 0, "flash_attention: no TMA load in the library's SASS")
-    require(all(k.get("spill_stores", 1) == 0 and k.get("spill_loads", 1) == 0 for k in ptxas.values())
-            and len(ptxas) == 4, f"flash_attention: ptxas reports spills or misses a kernel: {ptxas}")
+    require(no_spills(ptxas, 4), f"flash_attention: ptxas reports spills or misses a kernel: {ptxas}")
     records["flash_attention"] = phase_flash(dev)
     cfg_lm, params = phase_lm(dev, records["flash_attention"])
 

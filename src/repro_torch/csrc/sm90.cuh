@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of the port's tensor-core kernels, as raw
-// PTX: shared-memory addresses, mbarriers, the ftz exponent, TMA tile loads,
-// setmaxnreg and the bf16 warpgroup matrix multiply (wgmma) with its
-// shared-memory descriptors.
+// Hopper (sm_90a) building blocks of the port's flash and block-transform
+// kernels, as raw PTX: shared-memory addresses, mbarriers, the ftz exponent,
+// TMA tile loads and 1-D bulk copies, setmaxnreg and the bf16 warpgroup matrix
+// multiply (wgmma) with its shared-memory descriptors.
 //
 // Operand layouts (PTX ISA, "Matrix Descriptor Format"): every tile in shared
 // memory is written by TMA with the 128-byte swizzle, as rows of 64 bf16
@@ -78,6 +78,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of global memory at `src` into shared memory at
+// `dst`, both 16-byte aligned, with one bulk copy (no tensor map);
+// completion clears the bytes on `bar`.
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -37,7 +37,10 @@ def block_transform_quantize(
 
     CPU tensors take :func:`block_transform_quantize_ref`; CUDA tensors
     launch the kernel (float32 after a cast, B in :data:`BLOCK_SIZES`) or
-    raise.  ``block_rows`` and ``interpret`` are ignored (module docstring).
+    raise.  The kernel fills its tiles with bulk copies, which need a
+    16-byte aligned source: a view whose first element is not aligned (an
+    odd storage offset) goes to the kernel as an aligned contiguous copy.
+    ``block_rows`` and ``interpret`` are ignored (module docstring).
     """
     del block_rows, interpret
     if blocks.ndim != 2 or tuple(matrix.shape) != (blocks.shape[1],) * 2:
@@ -45,7 +48,7 @@ def block_transform_quantize(
                          f"and {tuple(matrix.shape)}")
     if blocks.device.type == "cpu":
         return block_transform_quantize_ref(blocks, matrix, q)
-    x = blocks.to(torch.float32).contiguous()
+    x = build.aligned(blocks.to(torch.float32).contiguous())
     mat = torch.as_tensor(matrix, device=x.device).to(torch.float32).contiguous()
     build.check_cuda(x, "blocks", torch.float32)
     build.check_cuda(mat, "matrix", torch.float32)
@@ -53,6 +56,8 @@ def block_transform_quantize(
     if B not in BLOCK_SIZES:
         raise ValueError(f"the CUDA block transform takes B in {BLOCK_SIZES}, got {B}")
     codes = torch.empty((nb, B), dtype=torch.int32, device=x.device)
+    if nb == 0:
+        return codes
     err = build.library("block_transform").block_transform_launch(
         x.data_ptr(), mat.data_ptr(), float(np.float32(q)), B, nb, codes.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,

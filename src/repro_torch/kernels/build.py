@@ -15,8 +15,8 @@ launch of a kernel builds its library (or :func:`build_all` builds every one,
 one ``nvcc`` process per source, all started together).
 
 The module also holds the launch plumbing every wrapper shares: operand
-checks (:func:`check_cuda`), bound operands (:func:`bound_operand`) and the
-error check after a launch (:func:`check`).
+checks (:func:`check_cuda`), aligned copies (:func:`aligned`), bound operands
+(:func:`bound_operand`) and the error check after a launch (:func:`check`).
 """
 
 from __future__ import annotations
@@ -43,8 +43,9 @@ NVCC_FLAGS = (
 )
 #: one shared library per source (each includes csrc/common.cuh or csrc/sm90.cuh)
 SOURCES = ("scube", "fcube", "rfft", "flash_attention", "quantize", "block_transform")
-#: flags of one source only: ptxas's register and spill report of the flash kernels
-SOURCE_FLAGS = {"flash_attention": ("-Xptxas", "-v")}
+#: flags of one source only: ptxas's register and spill report of the flash and
+#: block-transform kernels (``chip_smoke.py`` reads it from :func:`build_log`)
+SOURCE_FLAGS = {"flash_attention": ("-Xptxas", "-v"), "block_transform": ("-Xptxas", "-v")}
 
 _P, _F, _I, _L = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
 #: argtypes of each library's launchers (pointers and the stream as c_void_p)
@@ -176,6 +177,13 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{name} must be contiguous")
     if t.numel() > MAX_NUMEL:
         raise ValueError(f"{name} has {t.numel()} elements; the kernels take < 2^31")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its first element is 16-byte aligned, else a contiguous copy
+    of it (a fresh allocation, which is): a view at an odd storage offset
+    cannot feed a bulk copy or a 16-byte vector load."""
+    return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
 
 
 def is_row_bound(b, shape) -> bool:

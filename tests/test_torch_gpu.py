@@ -333,18 +333,185 @@ def test_quantize_matches_twin(shape, m, pointwise):
     assert _same(t_quantize.quantize_edits(wild, 1e-6, m=m), quantize_edits_ref(wild, 1e-6, m))
 
 
+#: rows at which the block transform's ring wraps several times on every SM
+#: for every B: 8 laps of the deepest ring of the largest tile (3 x 512 rows)
+#: over 132 SMs, plus a ragged tile
+BT_WRAP = 8 * 132 * 3 * 512 + 5
+#: row counts around every tile the kernel could use (R of 64 to 512 rows),
+#: a ring that wraps once on a CTA an SM, and one that wraps several times
+BT_ROWS = sorted({0, 1, 132 * 3 * 512 + 5, BT_WRAP} | {r + d for r in (64, 128, 256, 512) for d in (-1, 0, 1)})
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [16, 64, 128])
-def test_block_transform_matches_twin(B):
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("nb", BT_ROWS)
+@pytest.mark.parametrize("B", [16, 32, 64, 128])
+def test_block_transform_matches_twin(B, nb, misaligned):
     dev = _cuda()
     rng = np.random.default_rng(B)
-    x = torch.from_numpy(rng.lognormal(0.0, 1.0, (1037, B)).astype(np.float32)).to(dev)
+    x = np.exp(rng.standard_normal((nb, B), dtype=np.float32))
+    # NaN, +-inf and values whose codes leave int32, one in each of a few rows
+    wild = np.float32([np.nan, np.inf, -np.inf, 1e30, -1e30])[: nb]
+    x[rng.choice(nb, len(wild), replace=False), rng.integers(0, B, len(wild))] = wild
+    flat = torch.empty(nb * B + 1, device=dev)
+    blocks = flat[int(misaligned): int(misaligned) + nb * B].view(nb, B)
+    blocks.copy_(torch.from_numpy(x))
+    assert nb == 0 or (blocks.data_ptr() % 16 != 0) == misaligned
     q_mat, _ = np.linalg.qr(rng.standard_normal((B, B)))
     mat = torch.from_numpy(q_mat.astype(np.float32)).to(dev)
     before = t_bt.launches["block_transform"]
-    got = t_bt.block_transform_quantize(x, mat, 0.01)
-    assert t_bt.launches["block_transform"] == before + 1
-    assert _same((got,), (block_transform_quantize_ref(x, mat, 0.01),))
+    got = t_bt.block_transform_quantize(blocks, mat, 0.01)
+    assert t_bt.launches["block_transform"] == before + (nb > 0)
+    assert _same((got,), (block_transform_quantize_ref(blocks, mat, 0.01),))
+
+
+#: cudaErrorMisalignedAddress
+CUDA_ERROR_MISALIGNED_ADDRESS = 716
+
+
+@pytest.mark.gpu
+def test_block_transform_launch_refuses_a_misaligned_operand():
+    """The C launcher refuses an x or codes that is not 16-byte aligned (the
+    bulk copy and the int4 stores need it) and launches nothing; the
+    wrapper never hands it one."""
+    from repro_torch.kernels import build
+
+    dev = _cuda()
+    B, nb = 64, 8
+    x = torch.ones(nb * B + 4, device=dev)
+    codes = torch.full((nb * B + 4,), -7, dtype=torch.int32, device=dev)
+    mat = torch.eye(B, device=dev)
+    launch = build.library("block_transform").block_transform_launch
+    stream = torch.cuda.current_stream().cuda_stream
+    for xp, cp in ((x.data_ptr() + 4, codes.data_ptr()), (x.data_ptr(), codes.data_ptr() + 4)):
+        assert launch(xp, mat.data_ptr(), 1.0, B, nb, cp, stream) == CUDA_ERROR_MISALIGNED_ADDRESS
+    torch.cuda.synchronize()
+    assert bool((codes == -7).all())
+    assert launch(x.data_ptr(), mat.data_ptr(), 1.0, B, nb, codes.data_ptr(), stream) == 0
+    torch.cuda.synchronize()
+    assert bool((codes[: nb * B] == 1).all()) and bool((codes[nb * B:] == -7).all())
+
+
+#: csrc/block_transform.cu's kernel with its ring taken out: each CTA walks
+#: the same tiles, loading each with all its threads (float4 or scalar loads)
+#: between two barriers, then runs the same product loop and stores
+BT_SYNC_LOAD_SOURCE = r"""
+namespace {
+
+template <int B, bool kVec>
+__global__ void __launch_bounds__(Tiling<B>::kThreads, Tiling<B>::kMinBlocks)
+bt_sync_kernel(const float* __restrict__ x, const float* __restrict__ mat, float q, long long nb,
+               int* __restrict__ codes) {
+  using T = Tiling<B>;
+  extern __shared__ __align__(128) float smem[];
+  float* tile = smem;
+  float* mt = smem + T::kTile;
+  const int tid = threadIdx.x;
+  const long long tiles = (nb + T::kRows - 1) / T::kRows;
+  for (int i = tid; i < B * B; i += T::kThreads) mt[i] = mat[(i % B) * B + i / B];
+  const int tc = tid % T::kCols, tr = tid / T::kCols;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long rows = nb - t * T::kRows < T::kRows ? nb - t * T::kRows : T::kRows;
+    const float* src = x + t * T::kRows * B;
+    const int n = (int)(rows * B);  // 32-bit bounds, so that the loops unroll
+    __syncthreads();
+    if (kVec)
+      for (int i = tid; i < n / 4; i += T::kThreads)
+        reinterpret_cast<float4*>(tile)[i] = reinterpret_cast<const float4*>(src)[i];
+    else
+      for (int i = tid; i < n; i += T::kThreads) tile[i] = src[i];
+    __syncthreads();
+    float acc[T::kTM][T::kTN];
+    multiply_rows<B>(tile + tr * T::kTM * B, mt + 4 * tc, acc);
+    store_codes<B>(acc, q, t * T::kRows + tr * T::kTM, nb, codes + 4 * tc);
+  }
+}
+
+template <int B, bool kVec>
+int sync_launch(const float* x, const float* mat, float q, long long nb, int* codes, cudaStream_t s) {
+  using T = Tiling<B>;
+  const auto kernel = bt_sync_kernel<B, kVec>;
+  const size_t smem = sizeof(float) * (size_t)(T::kTile + B * B);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, T::kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (nb + T::kRows - 1) / T::kRows;
+  const unsigned grid = (unsigned)(tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm);
+  kernel<<<grid, T::kThreads, smem, s>>>(x, mat, q, nb, codes);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int bt_sync_launch(const void* x, const void* mat, float q, int B, long long nb, void* codes,
+                              void* stream, int vec) {
+  const float* xp = (const float*)x;
+  const float* mp = (const float*)mat;
+  int* cp = (int*)codes;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B == 64) return vec ? sync_launch<64, true>(xp, mp, q, nb, cp, s) : sync_launch<64, false>(xp, mp, q, nb, cp, s);
+  if (B == 128) return vec ? sync_launch<128, true>(xp, mp, q, nb, cp, s) : sync_launch<128, false>(xp, mp, q, nb, cp, s);
+  return (int)cudaErrorInvalidValue;
+}
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [64, 128])
+def test_block_transform_ring_outruns_a_synchronous_tile_load(B, tmp_path):
+    """Why the kernel fills its tiles through a ring of bulk copies: the same
+    kernel with each tile loaded by all its threads between two barriers
+    (with float4 loads, or with scalar loads that would need no aligned
+    operand) is bitwise too but slower at the smoke's shape, 262,144 x B.
+    Each variant's median of five timings, alternated, is printed
+    (``pytest -rP`` shows them)."""
+    import ctypes
+    import json
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    dev = _cuda()
+    (tmp_path / "bt_sync.cu").write_text((build.CSRC / "block_transform.cu").read_text() + BT_SYNC_LOAD_SOURCE)
+    lib = tmp_path / "libbt_sync.so"
+    subprocess.run([build.nvcc(), *build.flags("block_transform"), "-I", str(build.CSRC), "-o", str(lib),
+                    str(tmp_path / "bt_sync.cu")], check=True, capture_output=True, timeout=600)
+    sync = ctypes.CDLL(str(lib)).bt_sync_launch
+    sync.argtypes = list(build.SIGNATURES["block_transform"]["block_transform_launch"]) + [ctypes.c_int]
+    sync.restype = ctypes.c_int
+    ring = build.library("block_transform").block_transform_launch
+
+    nb = 262144
+    rng = np.random.default_rng(B)
+    x = torch.from_numpy(rng.standard_normal((nb, B), dtype=np.float32)).to(dev)
+    q_mat, _ = np.linalg.qr(rng.standard_normal((B, B)))
+    mat = torch.from_numpy(q_mat.astype(np.float32)).to(dev)
+    want = block_transform_quantize_ref(x, mat, 0.01)
+    codes = torch.empty_like(want)
+    args = (x.data_ptr(), mat.data_ptr(), 0.01, B, nb, codes.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    variants = {"ring": lambda: ring(*args), "sync_float4": lambda: sync(*args, 1),
+                "sync_scalar": lambda: sync(*args, 0)}
+    times = {}
+    for name, fn in variants.items():
+        codes.fill_(-1)
+        assert fn() == 0
+        torch.cuda.synchronize()
+        assert torch.equal(codes, want), name
+        times[name] = []
+    for _ in range(5):
+        for name, fn in variants.items():
+            times[name].append(_cuda_ms(fn, reps=50))
+    median = {name: float(np.median(t)) for name, t in times.items()}
+    print(json.dumps({"B": B, "nb": nb, "median_ms": median, "ms": times}))
+    assert median["ring"] < min(median["sync_float4"], median["sync_scalar"])
+
+
+@pytest.mark.gpu
+def test_block_transform_rejects_what_the_kernel_does_not_take():
+    dev = _cuda()
     with pytest.raises(ValueError, match="B in"):
         t_bt.block_transform_quantize(torch.zeros((4, 48), device=dev), torch.eye(48, device=dev), 0.01)
 

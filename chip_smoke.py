@@ -45,6 +45,24 @@ JSON line each (or more):
               (kernels 3 and 4 per pencil) and "xla", and one correct call
               with block 1023 (kernels 1 and 2 per pencil): every pencil's
               bounds rechecked in float64 on the host
+  train       Trainer on qwen2-0.5b at full width and depth (bf16 blocks,
+              remat "dots", 4x2048 tokens a step) with FFCz gradient
+              compression (grad_Delta_rel 5e-5: at the default 1e-2 the
+              correction never acts), 4 steps; then raw checkpoints every 2
+              steps, a failure injected at step 3, and a new Trainer that
+              resumes at step 2 and ends at the uninterrupted run's loss
+              (rtol 1e-4): step seconds, tokens/s, compress seconds, losses,
+              peak device memory
+  grad_pallas one step's gradients (494 M values) through compress_gradients
+              with the pallas engine (kernels 3 and 4 per pencil) and the
+              xla engine, every pencil rechecked in float64 on the host
+  (both)      grad_pallas and checkpoint also replay the first call of
+              kernels 3 and 4 at each pencil length they run against the
+              twins (bitwise)
+  checkpoint  CheckpointManager + CheckpointCodec(enabled=True, pallas
+              engine) on a trained (params, opt_state) at full width, 2
+              layers deep; a new Trainer restores it (B leaves within their
+              stored E and Delta in float64, R leaves bitwise) and steps
   9 summary   the kernels line, the nvidia-smi line, then {"ok": true, ...}
 
 Any failure exits non-zero before the last line.  The script needs a CUDA
@@ -79,7 +97,11 @@ BF16_TENSOR_FLOP_PER_S = 989e12
 # coder (a byte-identical copy of the reference's) would not finish in the
 # smoke's time limit
 CUTS = ["phase 6 (pspec_rel, E_roi) at 128^3 instead of 256^3: host Huffman coding of the "
-        "dense pspec edit stream is the limit"]
+        "dense pspec edit stream is the limit",
+        "phase checkpoint at 2 of 24 layers, every width kept (a cut for time): the base codec, float64 "
+        "polish and zlib run on the host, the tied embedding is in the state three times (params, m, v), "
+        "and the 2-layer state (0.47 G values to compress) takes about 250 s to save on an H100 machine's "
+        "8 host cores; the full-depth state is 1.48 G values"]
 
 
 class SmokeFailure(Exception):
@@ -454,17 +476,19 @@ def phase_lm(dev, record, cfg=None, tokens=(4, 2048), prompts=(4, 600)):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     batch = {"tokens": torch.randint(0, cfg.vocab, tokens, generator=gen, device=dev)}
-    float(bundle.loss(params, batch))  # warm-up: cuBLAS handles, the kernel's library
+    # scoring: no autograd graph (the flash kernel has no backward and raises under grad)
+    with torch.no_grad():
+        float(bundle.loss(params, batch))  # warm-up: cuBLAS handles, the kernel's library
 
-    read = reset_launches()
-    t0 = time.perf_counter()
-    loss = float(bundle.loss(params, batch))  # float() waits for the device
-    forward_s = time.perf_counter() - t0
-    counts = read()
-    naive = build_model(dataclasses.replace(cfg, attention_impl="naive"), device=dev)
-    t0 = time.perf_counter()
-    loss_naive = float(naive.loss(params, batch))
-    naive_s = time.perf_counter() - t0
+        read = reset_launches()
+        t0 = time.perf_counter()
+        loss = float(bundle.loss(params, batch))  # float() waits for the device
+        forward_s = time.perf_counter() - t0
+        counts = read()
+        naive = build_model(dataclasses.replace(cfg, attention_impl="naive"), device=dev)
+        t0 = time.perf_counter()
+        loss_naive = float(naive.loss(params, batch))
+        naive_s = time.perf_counter() - t0
     rel = abs(loss - loss_naive) / abs(loss_naive)
     emit("lm", part="loss", config=cfg.name, tokens=list(batch["tokens"].shape), init_seconds=init_s,
          loss_pallas=loss, loss_naive=loss_naive, rel_diff=rel, forward_seconds=forward_s,
@@ -522,34 +546,41 @@ def phase_lm(dev, record, cfg=None, tokens=(4, 2048), prompts=(4, 600)):
     return cfg, params
 
 
+def device_profile(fn, top=6):
+    """torch.profiler over one call of ``fn``: wall and device-busy
+    milliseconds, the idle share, kernel launches and the ``top`` kernels by
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    # kernels only (device-side events), as the profiler's own table sums them
+    device = {e.key: e.self_device_time_total / 1e3 for e in events
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+              and e.self_device_time_total > 0}
+    busy = sum(device.values())
+    ranked = sorted(device.items(), key=lambda kv: -kv[1])[:top]
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / (wall * 1e3)),
+            "kernel_launches": launches, "top_device_ms": [[k[:100], v] for k, v in ranked],
+            "flash_kernel_ms": sum(v for k, v in device.items() if "flash_fwd" in k)}
+
+
 def profile_lm(bundle, params, batch):
     """Where the device time goes: torch.profiler over one forward loss and
     over 3 decode steps after a 380-token prefill of the batch's rows (4 at
     full size), after the counted run."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    def traced(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-        # kernels only (device-side events), as the profiler's own table sums them
-        device = {e.key: e.self_device_time_total / 1e3 for e in events
-                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                  and e.self_device_time_total > 0}
-        busy = sum(device.values())
-        top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
-        launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-        return {"wall_ms": wall * 1e3, "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / (wall * 1e3)),
-                "kernel_launches": launches, "top_device_ms": [[k[:60], v] for k, v in top],
-                "flash_kernel_ms": sum(v for k, v in device.items() if "flash_fwd" in k)}
-
-    forward = traced(lambda: float(bundle.loss(params, batch)))
+    with torch.no_grad():
+        forward = device_profile(lambda: float(bundle.loss(params, batch)))
     tokens = batch["tokens"][:, :380]
     cache = bundle.init_cache(tokens.shape[0], tokens.shape[1] + 3)
     _, cache = bundle.prefill(params, {"tokens": tokens}, cache)
@@ -559,7 +590,7 @@ def profile_lm(bundle, params, batch):
         for _ in range(3):
             _, cache = bundle.decode(params, tokens[:, -1:], cache)
 
-    decode = traced(decode3)
+    decode = device_profile(decode3)
     emit("lm", part="profile", forward_loss=forward, decode_3_steps=decode)
 
 
@@ -849,13 +880,35 @@ def recheck_pencils(errs, Es, Ds, corrected, block):
         x = c.detach().cpu().numpy().astype(np.float64).reshape(-1)
         worst_s = max(worst_s, float(np.abs(x).max()) / E)
         require(float(np.abs(x).max()) <= E, f"pencils: a corrected error exceeds E={E}")
-        full = x[: x.size // block * block].reshape(-1, block)
-        spec = np.fft.rfft(full, axis=-1)
-        mag = np.maximum(np.abs(spec.real), np.abs(spec.imag)).max(axis=1)
-        tau = 5 * 2.0**-24 * np.log2(block) * np.sqrt(block) * np.sqrt((full * full).sum(axis=1))
-        worst_f = max(worst_f, float((mag / D).max()))
+        mag, tau = pencil_spectra(x, block)
+        if mag.size:
+            worst_f = max(worst_f, float((mag / D).max()))
         require(bool(np.all(mag <= D * (1 + 1e-5) + tau)), f"pencils: a pencil's spectrum exceeds Delta={D}")
     return worst_s, worst_f
+
+
+def pencil_spectra(x, block):
+    """For each full ``block``-pencil of the flat float64 ``x``: the largest
+    |Re| or |Im| of its rfft, and tau = 5 * 2^-24 * log2(N) * sqrt(N) *
+    ||pencil||_2.  Rows are split among the port's host threads (numpy's
+    FFTs release the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from repro_torch import host
+
+    full = x[: x.size // block * block].reshape(-1, block)
+
+    def part(rows):
+        spec = np.fft.rfft(rows, axis=-1)
+        mag = np.maximum(np.abs(spec.real), np.abs(spec.imag)).max(axis=1)
+        return mag, 5 * 2.0**-24 * np.log2(block) * np.sqrt(block) * np.sqrt((rows * rows).sum(axis=1))
+
+    chunks = np.array_split(full, max(1, min(host.THREADS, len(full) // 256)))
+    with ThreadPoolExecutor(len(chunks)) as pool:
+        parts = list(pool.map(part, chunks))
+    return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
 
 
 def phase_pencils(dev, records, cfg, params, tokens=(4, 2048), block=1024, kv_Delta_rel=1e-4):
@@ -928,9 +981,7 @@ def phase_pencils(dev, records, cfg, params, tokens=(4, 2048), block=1024, kv_De
         worst = max(worst, float((err / torch.stack(Es[j * cfg.n_layers:(j + 1) * cfg.n_layers])).max()))
     case["bf16_store_worst_abs_over_E"] = worst
     emit("pencils", **case)
-    for k in ("rfft_fwd_epilogue_rows", "unpack_sclip_rows"):
-        require(counts[k] > 0, f"pencils: kernel {k} never launched")
-        records[k]["launches"] = counts[k]
+    launches_on_path(records, counts, "pencils")
     del out
 
     case, counts, _, _, _ = run("compress_cache xla", CorrectionEngine(backend="batched", device=dev),
@@ -942,10 +993,418 @@ def phase_pencils(dev, records, cfg, params, tokens=(4, 2048), block=1024, kv_De
     case, counts, _, _, _ = run(f"correct block {odd} pallas", pallas,
                                 lambda eng: eng.correct(errs, Es, Ds, block=odd, max_iters=8))
     emit("pencils", **case)
-    for k in ("fcube_rows", "scube_rows"):
-        require(counts[k] > 0, f"pencils: kernel {k} never launched")
-        records[k]["launches"] = counts[k]
+    launches_on_path(records, counts, "pencils", ("fcube_rows", "scube_rows"))
     del errs, cache
+
+
+# checkpoints of the train and checkpoint phases: under build/ (ignored by
+# git), removed when each phase ends
+WORK_DIR = ROOT / "build" / "chip_smoke_ckpt"
+
+
+def phase_train(dev, cfg=None, tokens=(4, 2048), grad_Delta_rel=5e-5, steps=4, fail_at=3, ckpt_every=2):
+    """The training path: ``Trainer`` on qwen2-0.5b (full width and depth
+    when ``cfg`` is None; bf16 blocks, float32 head, ``remat="dots"``,
+    ``attention_impl="xla_flash"``), ``tokens`` a batch, FFCz gradient
+    compression at the reference's defaults but ``grad_Delta_rel``: the
+    quantizer's errors are at most E * 2^-8, so at the default 1e-2 the
+    correction never acts, and below 2^-8 it does (at 5e-5 every pencil of
+    a random gradient takes 2 iterations).  An uninterrupted run of
+    ``steps``; then a run with raw checkpoints every ``ckpt_every`` steps
+    (async writes) and a failure injected at ``fail_at``, and a new Trainer
+    on its directory that resumes at the last committed step and ends at
+    ``steps`` with the uninterrupted run's loss (rtol 1e-4, the reference
+    test's).  Step seconds are the uninterrupted run's; the seconds of
+    ``compress_gradients`` and the loop's iteration histogram are recorded
+    on the resumed run's steps.  Returns the resumed trainer."""
+    import dataclasses
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.runtime import SimulatedFailure, Trainer, TrainerConfig
+
+    cfg = cfg or get_config("qwen2-0.5b")
+    cfg = dataclasses.replace(cfg, compression=dataclasses.replace(
+        cfg.compression, grad_compression=True, grad_Delta_rel=grad_Delta_rel))
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+
+    def run_cfg(name, **kw):
+        return TrainerConfig(seq_len=tokens[1], global_batch=tokens[0], ckpt_dir=str(WORK_DIR / name),
+                             **{"ckpt_every": ckpt_every, "log_every": 1, **kw})
+
+    compress_s, hist = [], {}
+    compress = steps_mod.compress_gradients
+
+    def timed(grads, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = compress(grads, **kw)
+        torch.cuda.synchronize()
+        compress_s.append(time.perf_counter() - t)
+        return out
+
+    # the engine compress_gradients picks (default_engine of the gradients'
+    # device) is recorded through its class: "cuda" and "cuda:0" are two keys
+    correct = CorrectionEngine.correct
+
+    def recording(self, *args, **kw):
+        out = correct(self, *args, **kw)
+        iters = out[-1].block_iterations.cpu().numpy()
+        for k, v in zip(*np.unique(iters, return_counts=True)):
+            hist[int(k)] = hist.get(int(k), 0) + int(v)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a = Trainer(cfg, run_cfg("uninterrupted", ckpt_every=10**6), device=dev)  # saves at its end only
+    init_s = time.perf_counter() - t0
+    out_a = a.train(steps)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [m["dt"] for m in out_a["metrics"]]
+    losses_a = [m["loss"] for m in out_a["metrics"]]
+    del a
+    torch.cuda.empty_cache()
+
+    b = Trainer(cfg, run_cfg("resumed", inject_failure_at=fail_at), device=dev)
+    failed = False
+    try:
+        b.train(steps)
+    except SimulatedFailure:
+        failed = True
+    losses_b = [m["loss"] for m in b.metrics]
+    del b
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    c = Trainer(cfg, run_cfg("resumed"), device=dev)
+    restore_s = time.perf_counter() - t0
+    start = c.start_step
+    # compress seconds and the iteration histogram come from the resumed
+    # run's steps: the timed steps above and the profiled step below run
+    # without these wrappers
+    steps_mod.compress_gradients, CorrectionEngine.correct = timed, recording
+    try:
+        out_c = c.train(steps - start)
+    finally:
+        steps_mod.compress_gradients, CorrectionEngine.correct = compress, correct
+
+    # where a step's time goes: one more step of the resumed trainer
+    batch = c.pipeline.batch_at(steps)
+
+    def one_step():
+        c.params, c.opt_state, loss = c._step(c.params, c.opt_state, batch)
+        float(loss)
+
+    profile = device_profile(one_step, top=10)
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    losses_c = [m["loss"] for m in out_c["metrics"]]
+    gap = abs(out_c["final_loss"] - out_a["final_loss"]) / abs(out_a["final_loss"])
+    median = statistics.median(step_s)
+    emit("train", config=cfg.name, n_layers=cfg.n_layers, remat=cfg.remat, attention_impl=cfg.attention_impl,
+         tokens=list(tokens), grad_Delta_rel=grad_Delta_rel,
+         why_grad_Delta_rel=("the quantizer's errors are at most E*2^-bits, so every pencil's spectrum is at most "
+                             "block*E*2^-bits: below Delta = Delta_rel*block*E unless Delta_rel < 2^-bits = 3.9e-3"),
+         init_seconds=init_s, step_seconds=step_s, step_seconds_median=median,
+         tokens_per_s=tokens[0] * tokens[1] / median, compress_gradients_seconds=compress_s,
+         compress_gradients_seconds_median=statistics.median(compress_s), iterations_histogram=hist,
+         loss_uninterrupted=losses_a, loss_before_failure=losses_b, injected_failure=failed,
+         resumed_at=start, restore_seconds=restore_s, loss_resumed=losses_c, final_loss_rel_gap=gap,
+         peak_memory_gb=peak / 1e9, profile_one_step=profile)
+    require(all(np.isfinite(losses_a + losses_b + losses_c)), "train: a loss is not finite")
+    require(failed, "train: the injected failure did not happen")
+    require(start == (fail_at // ckpt_every) * ckpt_every, f"train: resumed at step {start}")
+    require(out_c["final_step"] == steps, f"train: the resumed run ended at step {out_c['final_step']}")
+    require(gap <= 1e-4, f"train: resumed final loss differs from the uninterrupted run's by {gap:.2e} > 1e-4")
+    require(hist and sum(v for k, v in hist.items() if k >= 2) > sum(hist.values()) / 2,
+            f"train: grad_Delta_rel={grad_Delta_rel} leaves most pencils untouched: {hist}")
+    return c
+
+
+def launches_on_path(records, counts, path, kernels=("rfft_fwd_epilogue_rows", "unpack_sclip_rows")):
+    """Add a path's launches of ``kernels`` to their summary records."""
+    for k in kernels:
+        require(counts[k] > 0, f"{path}: kernel {k} never launched")
+        records[k]["launches"] += counts[k]
+        records[k].setdefault("launches_by_path", {})[path] = counts[k]
+
+
+PENCIL_WRAPPERS = ("fwd_epilogue_fused", "unpack_sclip_fused")  # kernels 3, 4 (repro_torch.kernels.rfft.ops)
+
+
+def first_calls(ops, names):
+    """Wrap ``ops.<name>`` for each of ``names`` so that the first call at
+    each shape of its first argument keeps clones of its tensor arguments,
+    taken before the call.  Returns the captured calls, ``{(name, shape):
+    (args, kwargs)}``, and a function that puts the wrappers back."""
+    import torch
+
+    captured, orig = {}, {n: getattr(ops, n) for n in names}
+
+    def clone(v):
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            key = (name, tuple(args[0].shape))
+            if key not in captured:
+                captured[key] = ([clone(a) for a in args], {k: clone(v) for k, v in kw.items()})
+            return fn(*args, **kw)
+
+        return call
+
+    for name, fn in orig.items():
+        setattr(ops, name, wrap(name, fn))
+
+    def undo():
+        for name, fn in orig.items():
+            setattr(ops, name, fn)
+
+    return captured, undo
+
+
+def hold_at_path_shapes(path, records, captured):
+    """Replay each call captured by :func:`first_calls` on the kernel and on
+    its plain twin: every output bitwise equal.  The replay's launches are
+    not the path's: call this outside the path's count."""
+    import torch
+
+    from repro_torch.kernels.rfft import ops as rfft_ops
+
+    def clone(v):
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    checks = []
+    for (name, shape), (args, kw) in captured.items():
+        read = reset_launches()
+        got = getattr(rfft_ops, name)(*map(clone, args), **kw)
+        launched = [k for k, v in read().items() if v]
+        want = getattr(rfft_ops, name.replace("_fused", "_plain"))(*map(clone, args), **kw)
+        bitwise = len(got) == len(want) and all(same(g, w) for g, w in zip(got, want))
+        kernel = launched[0] if len(launched) == 1 else None
+        checks.append({"kernel": kernel, "shape": list(shape), "bitwise": bitwise})
+        require(kernel is not None, f"{path}: {name} at {shape} launched {launched}, want one kernel")
+        require(bitwise, f"{path}: {name} ({kernel}) != its twin at {shape}")
+        if kernel is not None:
+            records[kernel].setdefault("shapes_held_on_paths", {}).setdefault(path, []).append(list(shape))
+    emit(path, part="kernels_at_path_shapes", checks=checks)
+    require(bool(checks), f"{path}: no call of the per-pencil kernels was captured")
+
+
+def phase_grad_pallas(dev, records, trainer):
+    """``compress_gradients`` on one step's gradients of ``trainer``'s model
+    (the reference's tree layout: each layer tensor stacked on a layer axis),
+    with ``CorrectionEngine(fft_impl="pallas")`` (kernels 3, 4 per pencil)
+    and ``"xla"``, at the trainer's compression settings.  Each run's
+    corrected errors rechecked in float64 on the host as in phase pencils;
+    seconds of the second call of each (the first builds cuFFT plans).  The
+    pallas run's first call keeps the inputs of kernels 3 and 4 at each
+    pencil length, replayed against the twins before the timed call."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.kernels.rfft import ops as rfft_ops
+    from repro_torch.optim import compress_gradients
+
+    comp = trainer.cfg.compression
+    named = dict(trainer.params.named_parameters())
+    with torch.enable_grad():
+        loss = trainer.bundle.loss(trainer.params, trainer.pipeline.batch_at(trainer.start_step))
+        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    grads = lm_params_to_reference(grads, trainer.cfg)
+    n_values = sum(g.numel() for g in tree.leaves(grads))
+    kw = dict(bits=comp.grad_bits, E_rel=comp.grad_E_rel, Delta_rel=comp.grad_Delta_rel, block=comp.grad_block)
+    for impl in ("pallas", "xla"):
+        engine = CorrectionEngine(fft_impl=impl, device=dev)
+        if impl == "pallas":
+            captured, undo = first_calls(rfft_ops, PENCIL_WRAPPERS)
+        try:
+            compress_gradients(grads, engine=engine, **kw)  # warm-up: cuFFT plans
+        finally:
+            if impl == "pallas":
+                undo()
+        if impl == "pallas":
+            hold_at_path_shapes("grad_pallas", records, captured)
+            del captured
+        calls = []
+        correct = engine.correct
+
+        def recording(errs, Es, Ds, **ckw):
+            out = correct(errs, Es, Ds, **ckw)
+            calls.append((errs, Es, Ds, out, ckw["block"]))
+            return out
+
+        engine.correct = recording
+        read = reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = compress_gradients(grads, engine=engine, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read()
+        del engine.correct
+        hist, worst_s, worst_f, blocks = {}, 0.0, 0.0, []
+        for errs, Es, Ds, (corrected, stats), blk in calls:
+            s, f = recheck_pencils(errs, Es, Ds, corrected, blk)
+            worst_s, worst_f = max(worst_s, s), max(worst_f, f)
+            iters = stats.block_iterations.cpu().numpy()
+            for k, v in zip(*np.unique(iters, return_counts=True)):
+                hist[int(k)] = hist.get(int(k), 0) + int(v)
+            blocks.append(blk)
+            require(bool(stats.converged.all()), f"grad_pallas {impl}: a pencil did not converge")
+        del calls
+        # what the store in the gradient's dtype adds on top (reported only)
+        store = 0.0
+        for g, o in zip(tree.leaves(grads), tree.leaves(out)):
+            if g.numel() >= 2:
+                E = comp.grad_E_rel * float(g.float().abs().max())
+                store = max(store, float((o.float() - g.float()).abs().max()) / E)
+        del out
+        emit("grad_pallas", fft_impl=impl, values=n_values, leaves=len(tree.leaves(grads)), blocks=blocks,
+             seconds=seconds, iterations_histogram=hist, worst_abs_over_E=worst_s,
+             worst_spectrum_over_Delta=worst_f, stored_dtype_worst_abs_over_E=store,
+             launches={k: v for k, v in counts.items() if v})
+        if impl == "pallas":
+            launches_on_path(records, counts, "grad_pallas")
+
+
+def parse_b_header(data):
+    """E, Delta, block and shape from a tag-``B`` checkpoint leaf."""
+    import struct
+
+    _dt, E, Delta, block, ndim = struct.unpack_from("<BddIB", data, 1)
+    shape = struct.unpack_from(f"<{ndim}Q", data, 1 + struct.calcsize("<BddIB"))
+    return E, Delta, block, shape
+
+
+def phase_checkpoint(dev, records, cfg=None, tokens=(4, 2048), n_layers=2):
+    """A ``CheckpointManager`` with ``CheckpointCodec(enabled=True,
+    engine=CorrectionEngine(fft_impl="pallas"))`` (the reference's codec
+    defaults) saves a trained (params, opt_state) of qwen2-0.5b at full width
+    (two steps from a Trainer), cut to ``n_layers`` deep (the tied embedding
+    is in the state three times: params, m, v); a new Trainer on its
+    directory restores it, and takes one more step.  Every ``B`` leaf within
+    its stored E, every full pencil's spectrum within its stored Delta *
+    (1 + 1e-5) + tau (float64, host); ``R`` leaves bitwise.  Stage seconds
+    are summed over the codec's host threads (they overlap).  The save keeps
+    the inputs of the first call of kernels 3 and 4 at each pencil length
+    (a device copy, inside the timed save), replayed against the twins
+    after it."""
+    import dataclasses
+    import os
+    import resource
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointCodec, CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.kernels.rfft import ops as rfft_ops
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = cfg or get_config("qwen2-0.5b")
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    run = dict(seq_len=tokens[1], global_batch=tokens[0], ckpt_every=10**6, ckpt_async=False, log_every=1)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, TrainerConfig(ckpt_dir=str(WORK_DIR / "raw"), **run), device=dev)
+    trainer.train(2)
+    train_s = time.perf_counter() - t0
+    state = trainer.state()
+    saved = [t.detach().cpu() for t in tree.leaves(state)]
+    del trainer
+
+    codec = CheckpointCodec(enabled=True, engine=CorrectionEngine(fft_impl="pallas", device=dev))
+    stage_s, lock = {}, threading.Lock()
+
+    def timed(name, obj, attr):
+        fn = getattr(obj, attr)
+
+        def call(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            with lock:
+                stage_s[name] = stage_s.get(name, 0.0) + time.perf_counter() - t
+            return out
+
+        setattr(obj, attr, call)
+
+    for name, obj, attr in (("plan", codec.engine, "plan_pencils"), ("base", codec.base, "compress"),
+                            ("correct", codec.engine, "correct"), ("encode", codec.engine, "encode_pencils")):
+        timed(name, obj, attr)
+    directory = WORK_DIR / "compressed"
+    mgr = CheckpointManager(str(directory), codec=codec, keep=1)
+    captured, undo = first_calls(rfft_ops, PENCIL_WRAPPERS)
+    read = reset_launches()
+    t0 = time.perf_counter()
+    try:
+        mgr.save(2, state)
+    finally:
+        undo()
+    save_s = time.perf_counter() - t0
+    counts = read()
+    del state
+    hold_at_path_shapes("checkpoint", records, captured)
+    del captured
+    step_dir = directory / "step_000000000002"
+    blobs = [(step_dir / f"{i}.bin").read_bytes() for i in range(len(saved))]
+
+    # the restoring Trainer decodes the B leaves whatever its own codec
+    # settings; with compression off, its save after the extra step is raw
+    t0 = time.perf_counter()
+    restored_trainer = Trainer(cfg, TrainerConfig(ckpt_dir=str(directory), **run), device=dev)
+    restore_s = time.perf_counter() - t0
+    require(restored_trainer.start_step == 2, f"checkpoint: restored at step {restored_trainer.start_step}")
+    restored = [t.detach().cpu() for t in tree.leaves(restored_trainer.state())]
+
+    t0 = time.perf_counter()
+    tags, worst_s, worst_f = {}, 0.0, 0.0
+    for a, b, data in zip(saved, restored, blobs):
+        tag = data[:1].decode()
+        n, m = tags.get(tag, (0, 0))
+        tags[tag] = (n + 1, m + a.numel())
+        require(a.shape == b.shape and a.dtype == b.dtype, "checkpoint: a leaf changed shape or dtype")
+        if tag == "R":
+            require(torch.equal(a, b), "checkpoint: a raw leaf is not bitwise")
+            continue
+        require(tag == "B", f"checkpoint: unexpected tag {tag}")
+        E, Delta, block, _shape = parse_b_header(data)
+        diff = (b.double() - a.double()).numpy().reshape(-1)
+        worst_s = max(worst_s, float(np.abs(diff).max()) / E)
+        require(float(np.abs(diff).max()) <= E, f"checkpoint: a restored value exceeds E={E}")
+        mag, tau = pencil_spectra(diff, block)
+        if mag.size:
+            worst_f = max(worst_f, float((mag / Delta).max()))
+        require(bool(np.all(mag <= Delta * (1 + 1e-5) + tau)),
+                f"checkpoint: a pencil's spectrum exceeds Delta={Delta}")
+    check_s = time.perf_counter() - t0
+    raw_bytes = sum(t.numel() * t.element_size() for t in saved)
+    stored = sum(os.path.getsize(step_dir / f"{i}.bin") for i in range(len(saved)))
+    del saved, restored
+    loss = restored_trainer.train(1)["final_loss"]
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    emit("checkpoint", config=cfg.name, n_layers=n_layers, vocab=cfg.vocab, fft_impl="pallas",
+         leaves_by_tag={k: {"leaves": n, "values": m} for k, (n, m) in tags.items()},
+         raw_bytes=raw_bytes, stored_bytes=stored, ratio=raw_bytes / stored, save_seconds=save_s,
+         stage_thread_seconds=stage_s, restore_seconds=restore_s, check_seconds=check_s,
+         train_seconds=train_s, host_peak_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+         worst_abs_over_E=worst_s,
+         worst_spectrum_over_Delta=worst_f, loss_after_restore=loss,
+         launches={k: v for k, v in counts.items() if v})
+    require(np.isfinite(loss), "checkpoint: the restored trainer's loss is not finite")
+    require(tags.get("B", (0, 0))[0] > 0, "checkpoint: no leaf was compressed")
+    launches_on_path(records, counts, "checkpoint")
 
 
 def recheck(x, dec, blob):
@@ -1116,6 +1575,16 @@ def main() -> int:
     records.update(phase_pencil_kernels(dev))
     phase_pencils(dev, records, cfg_lm, params)
     del params
+    torch.cuda.empty_cache()
+
+    # the training path: Trainer with compressed gradients, failure and
+    # resume; one step's gradients through the pallas engine; an FFCz
+    # checkpoint through the pallas engine, restored by a new Trainer
+    trainer = phase_train(dev)
+    phase_grad_pallas(dev, records, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    phase_checkpoint(dev, records)
 
     # 9: summary
     kernels = [records[k] for k in KERNEL_ROWS]

@@ -92,7 +92,7 @@ class ArchConfig:
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     attention_impl: str = "xla_flash"  # xla_flash | pallas | naive
-    remat: str = "dots"  # none | dots | full (a training knob; the forward ignores it)
+    remat: str = "dots"  # none | dots | full (activation checkpointing under autograd)
     causal_scheduling: bool = True  # skip fully-masked causal kv blocks (perf)
     # mesh axes ((name, size), ...); the port runs on one device and raises
     # NotImplementedError for a non-empty mesh

@@ -10,7 +10,11 @@ plain numpy arrays and Python scalars (for example
 with ``None`` kept as ``None``) and build the port's dataclass, so one
 package's PLAN can feed the other's EXECUTE and one's result the other's
 ENCODE.  For the LM framework, ``lm_params_from_reference`` turns a
-reference parameter tree into the port model's ``state_dict``.
+reference parameter tree into the port model's ``state_dict`` and
+``lm_params_to_reference`` goes back; ``opt_state_from_reference`` /
+``opt_state_to_reference`` do the same for AdamW's ``{"m", "v", "step"}``.
+The trainer checkpoints ``(params, opt_state)`` in the reference's layout,
+so a checkpoint directory restores in either package.
 """
 
 from __future__ import annotations
@@ -116,13 +120,13 @@ def lm_params_from_reference(params_np: dict, cfg) -> dict:
     """The port's ``DenseLM`` state dict from a reference dense-LM parameter tree.
 
     ``params_np`` is the tree ``repro.models.model.build_model(cfg).init``
-    returns, with numpy leaves (``jax.tree.map(np.asarray, params)``); its
-    ``layers`` subtree is stacked on a leading layer axis (``stack_init``),
-    which becomes one ``layers.<i>.`` prefix per layer.  Values and dtypes
-    are kept exactly.
+    returns, with numpy leaves (``jax.tree.map(np.asarray, params)``) or
+    torch tensors; its ``layers`` subtree is stacked on a leading layer axis
+    (``stack_init``), which becomes one ``layers.<i>.`` prefix per layer.
+    Values and dtypes are kept exactly; a tensor leaf's layers are views of
+    it.
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported (ROADMAP.md Queue 1, slice 6)")
+    _check_dense(cfg)
     out = {}
 
     def walk(tree, prefix, layer=None):
@@ -130,16 +134,61 @@ def lm_params_from_reference(params_np: dict, cfg) -> dict:
             key = f"{prefix}{name}"
             if isinstance(v, dict):
                 walk(v, key + ".", layer)
+            elif isinstance(v, torch.Tensor):
+                out[key] = v if layer is None else v[layer]
             else:
                 out[key] = _tensor(v if layer is None else np.asarray(v)[layer])
 
     walk({k: v for k, v in params_np.items() if k != "layers"}, "")
-    n = {np.asarray(v).shape[0] for v in _leaves(params_np["layers"])}
+    n = {v.shape[0] for v in _leaves(params_np["layers"])}
     if n != {cfg.n_layers}:
         raise ValueError(f"layer axis {sorted(n)} does not match n_layers={cfg.n_layers}")
     for i in range(cfg.n_layers):
         walk(params_np["layers"], f"layers.{i}.", layer=i)
     return out
+
+
+def lm_params_to_reference(state_dict, cfg) -> dict:
+    """The reference's dense-LM parameter tree from a mapping with the port's
+    ``state_dict`` keys (parameters, gradients or AdamW moments): nested
+    dicts, every ``layers.<i>.<path>`` tensor stacked on a leading layer axis
+    under ``layers.<path>``.  Tensors stay on their device and dtype."""
+    _check_dense(cfg)
+    tree, layers = {}, {}
+    for key, t in state_dict.items():
+        path = key.split(".")
+        if path[0] == "layers":
+            layers.setdefault(int(path[1]), {})[tuple(path[2:])] = t
+        else:
+            _put(tree, path, t)
+    if sorted(layers) != list(range(cfg.n_layers)):
+        raise ValueError(f"layers {sorted(layers)} do not match n_layers={cfg.n_layers}")
+    for path in layers[0]:
+        _put(tree, ("layers",) + path, torch.stack([layers[i][path] for i in range(cfg.n_layers)]))
+    return tree
+
+
+def opt_state_to_reference(state: dict, cfg) -> dict:
+    """AdamW's ``{"m", "v", "step"}`` with the moments in the reference's tree."""
+    return {"m": lm_params_to_reference(state["m"], cfg), "v": lm_params_to_reference(state["v"], cfg),
+            "step": state["step"]}
+
+
+def opt_state_from_reference(state: dict, cfg) -> dict:
+    """The inverse of :func:`opt_state_to_reference`."""
+    return {"m": lm_params_from_reference(state["m"], cfg), "v": lm_params_from_reference(state["v"], cfg),
+            "step": state["step"]}
+
+
+def _check_dense(cfg) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported (ROADMAP.md Queue 1, slice 6)")
+
+
+def _put(tree: dict, path, v) -> None:
+    for name in path[:-1]:
+        tree = tree.setdefault(name, {})
+    tree[path[-1]] = v
 
 
 def _leaves(tree):

@@ -19,11 +19,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch import host
 from repro_torch.coding.quantize import DEFAULT_QUANT_BITS
 from repro_torch.core import blockwise
 from repro_torch.core.bounds import (
@@ -45,28 +47,50 @@ _FFT_IMPLS = ("xla", "packed", "pallas")
 # shared guarantee math (host numpy float64, as in the reference)
 
 
-def polish_pocs_float64(eps, spat, freq, E, Delta, axes=None, max_iters: int = 30):
+def polish_pocs_float64(eps, spat, freq, E, Delta, axes=None, max_iters: int = 30, threads: int = 1):
     """Exact (float64) POCS iterations to absorb float32 FFT round-off.
 
     Runs on the rfft half-spectrum over ``axes`` (default: all axes), with
     ``freq`` the matching half-spectrum accumulator.  Residual violations
     after the float32 loop are O(eps32 * ||delta||_inf), orders of magnitude
     below the bounds, so this converges in a handful of iterations.
+
+    ``threads > 1`` is for independent pencils (``axes=(1,)``, one a row,
+    scalar bounds): each iteration's transforms and clips run over row
+    chunks of at least 256 rows in that many threads, in lockstep, and the
+    result is bitwise the one-chunk result (no row depends on another, and
+    every chunk stops at the first iteration in which no row moves).
     """
     axes = tuple(range(eps.ndim)) if axes is None else tuple(axes)
     s = [eps.shape[a] for a in axes]
-    for _ in range(max_iters):
-        delta = np.fft.rfftn(eps, axes=axes)
-        re = np.clip(delta.real, -Delta, Delta)
-        im = np.clip(delta.imag, -Delta, Delta)
-        clipped = re + 1j * im
-        if np.array_equal(clipped, delta):
-            break
-        freq = freq + (clipped - delta)
+    eps, spat, freq = np.array(eps), np.array(spat), np.array(freq)
+    chunks = 1
+    if threads > 1:
+        if axes != (1,) or eps.ndim != 2 or np.ndim(E) or np.ndim(Delta):
+            raise ValueError("threads > 1 needs independent pencils: axes=(1,) and scalar bounds")
+        chunks = max(1, min(threads, eps.shape[0] // 256))
+    edges = np.linspace(0, eps.shape[0], chunks + 1).astype(int)
+    parts = [slice(a, b) for a, b in zip(edges, edges[1:])]
+
+    def forward(sl):
+        delta = np.fft.rfftn(eps[sl], axes=axes)
+        clipped = np.clip(delta.real, -Delta, Delta) + 1j * np.clip(delta.imag, -Delta, Delta)
+        return delta, clipped
+
+    def inverse(sl, delta, clipped):
+        freq[sl] += clipped - delta
         eps_f = np.fft.irfftn(clipped, s=s, axes=axes)
         eps_s = np.clip(eps_f, -E, E)
-        spat = spat + (eps_s - eps_f)
-        eps = eps_s
+        spat[sl] += eps_s - eps_f
+        eps[sl] = eps_s
+
+    with ThreadPoolExecutor(chunks) as pool:
+        run = map if chunks == 1 else pool.map
+        for _ in range(max_iters):
+            fwd = list(run(forward, parts))
+            if all(np.array_equal(clipped, delta) for delta, clipped in fwd):
+                break
+            list(run(lambda a: inverse(a[0], *a[1]), zip(parts, fwd)))
     return eps, spat, freq
 
 
@@ -825,7 +849,7 @@ class CorrectionEngine:
         freq = blockwise.to_numpy(freq_t).astype(np.complex128)
         eps_now = tiles0 + np.fft.irfft(freq, n=plan.block, axis=-1) + spat
         _eps, spat, freq = polish_pocs_float64(
-            eps_now, spat, freq, plan.E_proj, plan.Delta_proj, axes=(1,)
+            eps_now, spat, freq, plan.E_proj, plan.Delta_proj, axes=(1,), threads=host.THREADS
         )
         pair_w = rfft_pair_weights((plan.block,)).numpy().reshape(-1)
         k_s_max = int(np.count_nonzero(spat, axis=1).max()) if spat.size else 0

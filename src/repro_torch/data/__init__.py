@@ -1,5 +1,6 @@
-"""Synthetic science fields (paper Table I analogues)."""
+"""Data layer: deterministic sharded token pipeline + synthetic science fields."""
 
 from repro_torch.data.fields import make_field
+from repro_torch.data.pipeline import TokenPipeline
 
-__all__ = ["make_field"]
+__all__ = ["TokenPipeline", "make_field"]

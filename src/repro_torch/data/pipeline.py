@@ -1,0 +1,76 @@
+"""Deterministic, sharded, restart-safe token pipeline.
+
+Every batch is a pure function of (seed, step, shard): counter mode, each
+batch drawn from its own ``torch.Generator`` seeded from the triple, so
+restart-from-checkpoint resumes the exact stream with no iterator state to
+persist, and each data-parallel shard generates only its slice.  Synthetic
+"language" is the reference's: Zipf-distributed token draws with a Markov
+copy pass (p = 0.5 copy the previous token) so the loss signal is
+learnable.  The draws come from torch's generator, not ``jax.random``'s
+threefry stream, so the two packages' batches differ (as ``DenseLM.init_``
+differs from the reference's init); a parity test feeds both the same
+batch.  Batches are made on the host.  Only token batches are ported: the
+``vlm`` and ``audio`` inputs raise, as ``build_model`` does for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenPipeline:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    n_shards: int = 1
+    shard: int = 0
+    # modality stubs (not ported: non-zero raises)
+    vision_tokens: int = 0
+    vision_dim: int = 0
+    audio_frames: int = 0
+    audio_dim: int = 0
+
+    def __post_init__(self):
+        if self.vision_tokens or self.audio_frames:
+            raise NotImplementedError(
+                "vision and audio inputs are not ported yet (ROADMAP.md Queue 1, slice 6)"
+            )
+
+    @property
+    def shard_batch(self) -> int:
+        if self.global_batch % self.n_shards:
+            raise ValueError(f"global_batch {self.global_batch} is not a multiple of n_shards {self.n_shards}")
+        return self.global_batch // self.n_shards
+
+    def batch_at(self, step: int) -> Dict[str, Any]:
+        # the batch's own generator, seeded from (seed, step, shard)
+        words = np.random.SeedSequence([self.seed, step, self.shard]).generate_state(2, np.uint32)
+        gen = torch.Generator().manual_seed((int(words[0]) << 31) ^ int(words[1]))
+        f = torch.rand((self.shard_batch, self.seq_len), generator=gen)
+        # Zipf-ish marginal via exponential transform of uniforms in [1e-6, 1)
+        u = f * (1.0 - 1e-6) + 1e-6
+        ranks = torch.floor(torch.exp(float(np.log(float(self.vocab))) * u)) - 1
+        tokens = ranks.to(torch.int32) % self.vocab
+        # Markov smoothing: with p=0.5 copy previous token (learnable bigrams).
+        # The reference draws this coin from the ranks' own key, so it is the
+        # same uniform: a token is kept exactly when its draw is below 0.5
+        # (a rank below sqrt(vocab)), and the rest copy their predecessor.
+        keep = f < 0.5
+        tokens = torch.where(keep, tokens, torch.roll(tokens, 1, dims=1))
+        return {"tokens": tokens}
+
+
+def pipeline_for(cfg, seq_len: int, global_batch: int, seed: int = 0, n_shards: int = 1,
+                 shard: int = 0) -> TokenPipeline:
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue 1, slice 6)"
+        )
+    return TokenPipeline(vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch,
+                         seed=seed, n_shards=n_shards, shard=shard)

@@ -12,10 +12,14 @@
 
 The reference ``lax.scan``s one block over parameters stacked on a layer
 axis; here the layers are an ``nn.ModuleList`` run by a Python loop, and the
-cache holds each layer's K and V stacked on a leading layer axis.  The port
-is forward-only: ``loss``, ``prefill`` and ``decode`` run under
-``torch.no_grad()`` (the flash-attention kernel has no backward, nor has the
-reference's Pallas kernel).  Only ``family="dense"`` is ported.
+cache holds each layer's K and V stacked on a leading layer axis.  ``loss``
+is differentiable (``launch/steps.make_train_step`` runs autograd through
+it, each block checkpointed per ``cfg.remat``); callers that only score call
+it under ``torch.no_grad()``.  The flash-attention kernel has no backward,
+nor has the reference's Pallas kernel: with ``attention_impl="pallas"`` a
+loss that autograd records raises on the card, and training runs the
+default ``"xla_flash"``.  ``prefill`` and ``decode`` run under
+``torch.no_grad()``.  Only ``family="dense"`` is ported.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from torch import nn
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import RMSNorm, cross_entropy_loss, dense_init, dtype_of, embed_init, rmsnorm
-from repro_torch.models.transformer import DenseBlock
+from repro_torch.models.transformer import DenseBlock, remat_wrap
 
 _UNPORTED_FAMILIES = ("moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -95,11 +99,13 @@ class DenseLM(nn.Module):
         ``cfg`` is the config the bundle was built with, as the reference's
         backbone takes it."""
         x = _embed(self, tokens, cfg)
-        for i, layer in enumerate(self.layers):
-            c = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"]}
-            x, _ = layer(x, cfg, cache=c, from_zero=from_zero)
         if cache is None:
+            for layer in self.layers:
+                x, _ = remat_wrap(layer, cfg.remat)(x, cfg)
             return x, None
+        for i, layer in enumerate(self.layers):
+            c = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"]}
+            x, _ = layer(x, cfg, cache=c, from_zero=from_zero)
         return x, {"k": cache["k"], "v": cache["v"], "pos": cache["pos"] + tokens.shape[1]}
 
 
@@ -143,7 +149,6 @@ def _build_dense(cfg: ArchConfig, device: torch.device) -> ModelBundle:
         params.load_state_dict(sd, strict=True, assign=True)
         return params
 
-    @torch.no_grad()
     def loss(params: DenseLM, batch) -> torch.Tensor:
         tokens = tokens_of(batch)
         h, _ = params(tokens, cfg)

@@ -2,20 +2,54 @@
 
 The reference stacks each layer's parameters on a leading axis and
 ``lax.scan``s the block over them; the port keeps one :class:`DenseBlock`
-per layer in an ``nn.ModuleList`` (``models/model.py``).  ``cfg.remat`` is a
-training knob and does nothing in this forward-only port.
+per layer in an ``nn.ModuleList`` (``models/model.py``).  ``remat_wrap``
+applies ``cfg.remat`` to a block under autograd, with the reference's names:
+``"none"`` saves every activation, ``"full"`` recomputes the block in the
+backward from its inputs (``nothing_saveable``), ``"dots"`` saves only the
+matrix products' outputs and recomputes the rest (``dots_saveable``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models.attention import Attention, attention_apply
 from repro_torch.models.layers import RMSNorm, SwiGLU, dtype_of
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn: Callable, remat: str) -> Callable:
+    """``fn`` checkpointed per ``remat`` while autograd records; as is
+    without grad (scoring and serving keep no graph to recompute)."""
+    if remat == "none":
+        return fn
+    if remat == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _dots_saveable)
+    elif remat == "full":
+        context_fn = None
+    else:
+        raise ValueError(f"unknown remat {remat!r}")
+
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        if context_fn is None:
+            return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn, **kwargs)
+
+    return wrapped
 
 
 class DenseBlock(nn.Module):

@@ -573,3 +573,130 @@ def test_engine_backends_agree_on_the_card():
         for b in ("local", "batched")]
     for a, b in zip(outs[0][0], outs[1][0]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the training path: gradient and checkpoint compression, remat
+
+
+def _pencils_within(err, E, D, block):
+    """|err| <= E and every full pencil's spectrum within D * (1 + 1e-5) +
+    tau, in float64 on the host (tau bounds the float32 FFT's rounding)."""
+    x = err.detach().cpu().double().numpy().reshape(-1)
+    full = x[: x.size // block * block].reshape(-1, block)
+    spec = np.fft.rfft(full, axis=-1)
+    mag = np.maximum(np.abs(spec.real), np.abs(spec.imag)).max(axis=1)
+    tau = 5 * 2.0**-24 * np.log2(block) * np.sqrt(block) * np.sqrt((full * full).sum(axis=1))
+    return float(np.abs(x).max()) <= E and bool(np.all(mag <= D * (1 + 1e-5) + tau))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_compress_gradients_on_the_card_holds_bounds(impl):
+    """Float32 and bfloat16 leaves, block 4096 and a short leaf's own
+    length; Delta_rel 5e-5 < 2^-8, so the loop corrects."""
+    from repro_torch.optim import compress_gradients
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    grads = {"embed": torch.randn((64, 4096), generator=gen, device=dev) * 1e-3,
+             "layers": {"w": torch.randn((3, 896, 64), generator=gen, device=dev).to(torch.bfloat16),
+                        "scale": torch.randn((3, 896), generator=gen, device=dev)},
+             "ln": torch.randn(896, generator=gen, device=dev)}
+    engine = CorrectionEngine(fft_impl=impl, device=dev)
+    calls, correct = [], engine.correct
+
+    def recording(errs, Es, Ds, **kw):
+        out = correct(errs, Es, Ds, **kw)
+        calls.append((Es, Ds, out, kw["block"]))
+        return out
+
+    engine.correct = recording
+    before = dict(t_rfft.launches)
+    out = compress_gradients(grads, Delta_rel=5e-5, engine=engine)
+    assert sorted(c[3] for c in calls) == [896, 2688, 4096]  # each short leaf its own length
+    for Es, Ds, (corrected, stats), block in calls:
+        assert bool(stats.converged.all())
+        assert block != 4096 or int(stats.block_iterations.max()) >= 2  # the loop corrects
+        for E, D, c in zip(Es, Ds, corrected):
+            assert _pencils_within(c, float(E), float(D), block)
+    assert out["layers"]["w"].dtype == torch.bfloat16 and out["embed"].shape == (64, 4096)
+    fired = [t_rfft.launches[k] - before[k] for k in ("rfft_fwd_epilogue_rows", "unpack_sclip_rows")]
+    if impl == "pallas":
+        assert all(n > 0 for n in fired)
+    else:
+        assert not any(fired)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_encode_batch_on_the_card_holds_bounds(impl):
+    import struct
+
+    from repro_torch.checkpoint import CheckpointCodec
+
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    arrays = [(rng.standard_normal((256, 4096)) * 0.02).astype(np.float32),
+              np.cumsum(rng.standard_normal((4, 8, 16, 32)), axis=-1).astype(np.float32),
+              rng.standard_normal(5000).astype(np.float64), np.arange(10)]
+    codec = CheckpointCodec(enabled=True, engine=CorrectionEngine(fft_impl=impl, device=dev))
+    before = dict(t_rfft.launches)
+    blobs = codec.encode_batch(arrays)
+    assert [b[:1] for b in blobs] == [b"B", b"B", b"B", b"R"]
+    for a, data in zip(arrays, blobs):
+        back = codec.decode(data)
+        assert back.shape == a.shape and back.dtype == a.dtype
+        if data[:1] == b"R":
+            assert np.array_equal(back, a)
+            continue
+        _dt, E, D, block, _nd = struct.unpack_from("<BddIB", data, 1)
+        diff = back.astype(np.float64) - a.astype(np.float32).astype(np.float64)
+        assert np.abs(diff).max() <= E
+        flat = diff.reshape(-1)
+        full = flat[: flat.size // block * block].reshape(-1, block)
+        if full.size:
+            spec = np.fft.rfft(full, axis=-1)
+            assert max(np.abs(spec.real).max(), np.abs(spec.imag).max()) <= D * (1 + 1e-9)
+    fired = sum(t_rfft.launches[k] - before[k] for k in t_rfft.launches)
+    assert (fired > 0) == (impl == "pallas")
+
+
+def _loss_and_grads(cfg, params, tokens):
+    from repro_torch.models.model import build_model
+
+    bundle = build_model(cfg, device="cuda")
+    named = dict(params.named_parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss = bundle.loss(params, {"tokens": tokens})
+    grads = torch.autograd.grad(loss, list(named.values()))
+    torch.cuda.synchronize()
+    return loss.detach(), grads, torch.cuda.max_memory_allocated() - base
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_modes_agree_on_the_card(dtype):
+    """The same loss (bitwise: the forward is deterministic) and gradients
+    (within 1e-6 of each leaf's largest: the embedding's backward adds with
+    atomics) in every remat mode; the peak memory of ``none`` above both
+    checkpointed modes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    dev = _cuda()
+    cfg = get_config("qwen2-0.5b", n_layers=4, vocab=32768, dtype=dtype)
+    params = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 1024), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    out = {m: _loss_and_grads(dataclasses.replace(cfg, remat=m), params, tokens) for m in ("none", "dots", "full")}
+    print({m: o[2] / 1e6 for m, o in out.items()}, "MB peak above the parameters")
+    for m in ("dots", "full"):
+        assert torch.equal(out[m][0], out["none"][0])
+        for a, b in zip(out[m][1], out["none"][1]):
+            assert float((a.float() - b.float()).abs().max()) <= 1e-6 * float(b.float().abs().max())
+    assert out["none"][2] > out["dots"][2] >= out["full"][2]

@@ -7,9 +7,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``
 (into ``build/``), holds each kernel against its plain PyTorch twin on the
 card at the main path's shapes, then drives ``FFCz.compress`` /
 ``FFCz.decompress`` with ``FFCzConfig(fft_impl="pallas")`` at full size and
-rechecks both stored bounds in float64, and drives the qwen2-0.5b dense LM
-at full width (``ModelBundle.loss`` and ``ServingEngine``).  Phases, one
-JSON line each (or more):
+rechecks both stored bounds in float64, drives the qwen2-0.5b dense LM at
+full width (``ModelBundle.loss``, ``ServingEngine``, ``Trainer``), and the
+FFCz service path (temporal streams, ``FFCzService``, session recovery).
+Phases, one JSON line each (or more):
 
   1 device    card name, count, nvidia-smi name and power limit
   2 build     nvcc wall seconds (one process per source, in parallel)
@@ -63,6 +64,31 @@ JSON line each (or more):
               engine) on a trained (params, opt_state) at full width, 2
               layers deep; a new Trainer restores it (B leaves within their
               stored E and Delta in float64, R leaves bitwise) and steps
+  stream_field  TemporalCodec in field mode (pallas engine) on 5 frames of
+              an evolving 128^3 lognormal field (keyframe every 4, linear),
+              warm start on and off (kernels 3, 4), then 3 frames cropped
+              to 128x128x127 (kernels 1, 2): iterations warm against cold,
+              seconds per frame by stage, every frame rechecked against the
+              header's (E, Delta) in float64, every seek bitwise the
+              sequential decode
+  stream_eeg  pencil mode on 8 EEG frames of 128 channels x 8192 samples
+              (one pencil a channel: 3p, 4p), then 3 frames at block 4095
+              (1p, 2p), Delta_rel 1e-4; the same rechecks
+  service     FFCzService (pallas engine, max_batch 8, block 4096, depth 2,
+              file-backed session journals) on 8 fields of 1024^2 and 2 of
+              128^3, 16 pencil tensors of 64 Ki - 1 Mi values, a 4-frame
+              512^2 stream and a live session (4 appends, a duplicate
+              retry, a finalize); every blob decoded, a quarter with a bit
+              flipped; no rung allowed; p50/p99 latency, timers, counters;
+              again at depth 1, byte-identical
+  service_faults  the same under FaultInjector(p_codec=0.3, p_dispatch=0.3,
+              p_oom=0.5, max_per_site=2, seed=7): fallback:packed,
+              fallback:xla and bisect each taken, every completed result
+              within its bounds
+  session_recover  a session's .wal after 2 appends, recovered by a new
+              FFCzService and finished: bitwise compress_stream's container
+  (all five)  replay the first call of the loop's kernels at each shape
+              against the twins (bitwise)
   9 summary   the kernels line, the nvidia-smi line, then {"ok": true, ...}
 
 Any failure exits non-zero before the last line.  The script needs a CUDA
@@ -101,7 +127,13 @@ CUTS = ["phase 6 (pspec_rel, E_roi) at 128^3 instead of 256^3: host Huffman codi
         "phase checkpoint at 2 of 24 layers, every width kept (a cut for time): the base codec, float64 "
         "polish and zlib run on the host, the tied embedding is in the state three times (params, m, v), "
         "and the 2-layer state (0.47 G values to compress) takes about 250 s to save on an H100 machine's "
-        "8 host cores; the full-depth state is 1.48 G values"]
+        "8 host cores; the full-depth state is 1.48 G values",
+        "phase stream_field's frames at 128^3 instead of the 256^3 of phases 4-5 (a cut for time): a 256^3 "
+        "frame costs 32-42 s of host float64 polish, and the phase encodes 13 frames",
+        "phase stream_field at 5 frames a run (warm, cold) and 3 cropped, not 8 and 4, and phase stream_eeg at "
+        "8 frames and 3 at block 4095, not 16 and 4 (cuts of frame counts for time): at the full counts the five "
+        "service-path phases took 272 s of the 200 s they may add (on an NVIDIA H100 80GB HBM3 at 700 W), "
+        "nearly all host float64 polish (0.3-8.6 s a 128^3 frame, 1.5-2 s an EEG frame)"]
 
 
 class SmokeFailure(Exception):
@@ -1136,32 +1168,46 @@ def launches_on_path(records, counts, path, kernels=("rfft_fwd_epilogue_rows", "
 PENCIL_WRAPPERS = ("fwd_epilogue_fused", "unpack_sclip_fused")  # kernels 3, 4 (repro_torch.kernels.rfft.ops)
 
 
-def first_calls(ops, names):
-    """Wrap ``ops.<name>`` for each of ``names`` so that the first call at
-    each shape of its first argument keeps clones of its tensor arguments,
-    taken before the call.  Returns the captured calls, ``{(name, shape):
-    (args, kwargs)}``, and a function that puts the wrappers back."""
+def path_wrappers(even=True):
+    """The (ops module, wrapper names) groups of the POCS loop's kernels:
+    kernels 3 and 4 when the last axis (or the pencil) is even, 2 and 1 when
+    it is odd.  Each wrapper takes its whole-field and per-pencil modes."""
+    from repro_torch.kernels.fcube import ops as fcube_ops
+    from repro_torch.kernels.rfft import ops as rfft_ops
+    from repro_torch.kernels.scube import ops as scube_ops
+
+    if even:
+        return ((rfft_ops, PENCIL_WRAPPERS),)
+    return ((fcube_ops, ("project_fcube_fused",)), (scube_ops, ("project_scube_fused",)))
+
+
+def first_calls(*groups):
+    """Wrap ``ops.<name>`` for each ``(ops, names)`` of ``groups`` so that the
+    first call at each shape of its first argument keeps clones of its
+    tensor arguments, taken before the call.  Returns the captured calls,
+    ``{(name, shape): (ops, args, kwargs)}``, and a function that puts the
+    wrappers back."""
     import torch
 
-    captured, orig = {}, {n: getattr(ops, n) for n in names}
+    captured, orig = {}, {(ops, n): getattr(ops, n) for ops, names in groups for n in names}
 
     def clone(v):
         return v.clone() if isinstance(v, torch.Tensor) else v
 
-    def wrap(name, fn):
+    def wrap(ops, name, fn):
         def call(*args, **kw):
             key = (name, tuple(args[0].shape))
             if key not in captured:
-                captured[key] = ([clone(a) for a in args], {k: clone(v) for k, v in kw.items()})
+                captured[key] = (ops, [clone(a) for a in args], {k: clone(v) for k, v in kw.items()})
             return fn(*args, **kw)
 
         return call
 
-    for name, fn in orig.items():
-        setattr(ops, name, wrap(name, fn))
+    for (ops, name), fn in orig.items():
+        setattr(ops, name, wrap(ops, name, fn))
 
     def undo():
-        for name, fn in orig.items():
+        for (ops, name), fn in orig.items():
             setattr(ops, name, fn)
 
     return captured, undo
@@ -1173,17 +1219,15 @@ def hold_at_path_shapes(path, records, captured):
     not the path's: call this outside the path's count."""
     import torch
 
-    from repro_torch.kernels.rfft import ops as rfft_ops
-
     def clone(v):
         return v.clone() if isinstance(v, torch.Tensor) else v
 
     checks = []
-    for (name, shape), (args, kw) in captured.items():
+    for (name, shape), (ops, args, kw) in captured.items():
         read = reset_launches()
-        got = getattr(rfft_ops, name)(*map(clone, args), **kw)
+        got = getattr(ops, name)(*map(clone, args), **kw)
         launched = [k for k, v in read().items() if v]
-        want = getattr(rfft_ops, name.replace("_fused", "_plain"))(*map(clone, args), **kw)
+        want = getattr(ops, name.replace("_fused", "_plain"))(*map(clone, args), **kw)
         bitwise = len(got) == len(want) and all(same(g, w) for g, w in zip(got, want))
         kernel = launched[0] if len(launched) == 1 else None
         checks.append({"kernel": kernel, "shape": list(shape), "bitwise": bitwise})
@@ -1192,7 +1236,7 @@ def hold_at_path_shapes(path, records, captured):
         if kernel is not None:
             records[kernel].setdefault("shapes_held_on_paths", {}).setdefault(path, []).append(list(shape))
     emit(path, part="kernels_at_path_shapes", checks=checks)
-    require(bool(checks), f"{path}: no call of the per-pencil kernels was captured")
+    require(bool(checks), f"{path}: no call of the loop's kernels was captured")
 
 
 def phase_grad_pallas(dev, records, trainer):
@@ -1224,7 +1268,7 @@ def phase_grad_pallas(dev, records, trainer):
     for impl in ("pallas", "xla"):
         engine = CorrectionEngine(fft_impl=impl, device=dev)
         if impl == "pallas":
-            captured, undo = first_calls(rfft_ops, PENCIL_WRAPPERS)
+            captured, undo = first_calls((rfft_ops, PENCIL_WRAPPERS))
         try:
             compress_gradients(grads, engine=engine, **kw)  # warm-up: cuFFT plans
         finally:
@@ -1345,7 +1389,7 @@ def phase_checkpoint(dev, records, cfg=None, tokens=(4, 2048), n_layers=2):
         timed(name, obj, attr)
     directory = WORK_DIR / "compressed"
     mgr = CheckpointManager(str(directory), codec=codec, keep=1)
-    captured, undo = first_calls(rfft_ops, PENCIL_WRAPPERS)
+    captured, undo = first_calls((rfft_ops, PENCIL_WRAPPERS))
     read = reset_launches()
     t0 = time.perf_counter()
     try:
@@ -1405,6 +1449,559 @@ def phase_checkpoint(dev, records, cfg=None, tokens=(4, 2048), n_layers=2):
     require(np.isfinite(loss), "checkpoint: the restored trainer's loss is not finite")
     require(tags.get("B", (0, 0))[0] > 0, "checkpoint: no leaf was compressed")
     launches_on_path(records, counts, "checkpoint")
+
+
+# -- the service path (slice 7): temporal streams, the FFCz service, sessions --
+
+SERVICE_DIR = ROOT / "build" / "chip_smoke_wal"  # session journals (ignored by git), removed after
+
+
+def sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class StageClock:
+    """Wall seconds of named calls: ``targets`` is ``[(stage, obj, attr)]``;
+    while the clock is on, each ``obj.attr`` adds its calls' seconds to its
+    stage (``take()`` returns and clears the sums)."""
+
+    def __init__(self, targets):
+        self.targets, self.sums, self.saved = targets, {}, []
+
+    def __enter__(self):
+        for stage, obj, attr in self.targets:
+            fn = getattr(obj, attr)
+            self.saved.append((obj, attr, fn, attr in vars(obj)))
+
+            def call(*args, _fn=fn, _stage=stage, **kw):
+                t = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    self.sums[_stage] = self.sums.get(_stage, 0.0) + time.perf_counter() - t
+
+            setattr(obj, attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, fn, own in reversed(self.saved):
+            if own:
+                setattr(obj, attr, fn)
+            else:
+                delattr(obj, attr)
+
+    def take(self):
+        out, self.sums = self.sums, {}
+        return out
+
+
+def stream_stages(codec):
+    """The stages of one stream frame, as :class:`StageClock` targets."""
+    from repro_torch.core import temporal
+
+    eng = codec.engine
+    common = [("base", codec.base, "compress"), ("base", codec.base, "decompress")]
+    if codec.stream.mode == "pencils":
+        return common + [("plan", eng, "plan_pencils"), ("loop", eng, "correct"),
+                         ("polish_encode", eng, "encode_pencils"), ("decode", temporal, "decode_pencil_blob")]
+    return common + [("plan", eng, "plan_field"), ("loop", eng, "execute_field_async"),
+                     ("polish", eng, "_finalize_field"), ("encode", eng, "encode_field"),
+                     ("decode", codec._ffcz, "decompress")]
+
+
+def encode_stream(dev, codec, frames, wrappers):
+    """Encode ``frames`` with the launch counts zeroed just before and read
+    just after, each frame's stage seconds on the clock, and the first call
+    of the loop's kernels at each shape kept (``wrappers``: ops groups)."""
+    captured, undo = first_calls(*wrappers)
+    read = reset_launches()
+    per_frame = []
+    try:
+        with StageClock(stream_stages(codec)) as clock:
+            enc = codec.open_stream()
+            for x in frames:
+                t0 = time.perf_counter()
+                enc.add_frame(x)
+                sync(dev)
+                per_frame.append({"seconds": time.perf_counter() - t0, **clock.take()})
+            data = enc.finish()
+    finally:
+        undo()
+    return enc, data, per_frame, read(), captured
+
+
+def claimed_margins(x, dec, E, Delta, block=0):
+    """Float64 margins of a decoded frame or pencil envelope against the
+    scalar (E, Delta) it CLAIMS: whole-field rfftn, or (``block`` > 0) each
+    full ``block``-pencil's rfft (:func:`pencil_spectra`; a padded last pencil
+    is corrected with its pad, so only E holds there from the output:
+    ROADMAP.md Queue 3).  Exact, with no tau: a stream header's and a pencil
+    envelope's bounds are the claims from which the plan already took the
+    float32 slack (``_residual_bounds``, ``plan_pencils``' ``E_proj`` and
+    ``Delta_proj``), whereas :func:`recheck_pencils` holds the loop's own
+    target bound, which a float32 FFT meets only to its rounding."""
+    import numpy as np
+
+    eps = dec.astype(np.float64) - np.asarray(x, np.float32).astype(np.float64)
+    if block:
+        mag = pencil_spectra(eps.reshape(-1), block)[0]
+    else:
+        spec = np.fft.rfftn(eps)
+        mag = np.maximum(np.abs(spec.real), np.abs(spec.imag))
+    return float(E - np.abs(eps).max()), float(Delta - mag.max(initial=0.0))
+
+
+def check_stream(path, codec, data, frames):
+    """Decode every frame: each within the header's (E, Delta) in float64,
+    each seek (``decode_frame``) bitwise the sequential decode."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from repro_torch import host
+    from repro_torch.core.temporal import TemporalStream
+
+    s = TemporalStream.from_bytes(data)
+    t0 = time.perf_counter()
+    dec = codec.decompress_stream(data)
+    decode_s = time.perf_counter() - t0
+    # the frames' rechecks and seeks are independent: the host's threads
+    # share them (numpy's FFTs release the interpreter lock)
+    with ThreadPoolExecutor(host.THREADS) as pool:
+        margins = list(pool.map(lambda xd: claimed_margins(*xd, s.E, s.Delta, s.block if s.mode == "pencils" else 0),
+                                zip(frames, dec)))
+        t0 = time.perf_counter()
+        seeks = list(pool.map(lambda t: bool(np.array_equal(codec.decode_frame(data, t), dec[t])),
+                              range(s.n_frames)))
+        seek_s = time.perf_counter() - t0
+    require(s.n_frames == len(frames), f"{path}: {s.n_frames} frames in the container")
+    require(all(m[0] >= 0 and m[1] >= 0 for m in margins), f"{path}: a frame exceeds the header's bounds")
+    require(all(seeks), f"{path}: a seek differs from the sequential decode")
+    return {"bytes": len(data), "E": s.E, "Delta": s.Delta, "decode_seconds": decode_s, "seek_seconds": seek_s,
+            "worst_spatial_margin": min(m[0] for m in margins), "worst_frequency_margin": min(m[1] for m in margins)}
+
+
+EVEN_FIELD_KERNELS, ODD_FIELD_KERNELS = ("rfft_fwd_epilogue", "unpack_sclip"), ("fcube", "scube")
+EVEN_PENCIL_KERNELS, ODD_PENCIL_KERNELS = ("rfft_fwd_epilogue_rows", "unpack_sclip_rows"), ("fcube_rows", "scube_rows")
+
+
+def evolving_fields(shape, n, name="nyx-like-128", step=0.01):
+    """A slowly evolving lognormal field: frame 0 is ``name``'s field (seed
+    0), each next frame adds ``step`` of a fresh field of the same spectrum
+    (seed t)."""
+    import numpy as np
+
+    from repro_torch.configs.ffcz_fields import FieldConfig
+    from repro_torch.data.fields import make_field
+
+    frames = [make_field(FieldConfig(name, shape, "lognormal", alpha=2.0, seed=0))]
+    for t in range(1, n):
+        fresh = make_field(FieldConfig(name, shape, "lognormal", alpha=2.0, seed=t))
+        frames.append((frames[-1].astype(np.float64) + step * fresh).astype(np.float32))
+    return frames
+
+
+def pallas_engine_config(dev, **kw):
+    """The service path's engine and bounds: ``fft_impl="pallas"``, E_rel =
+    Delta_rel = 1e-3 unless ``kw`` says otherwise."""
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.core.ffcz import FFCzConfig
+
+    cfg = FFCzConfig(**{"fft_impl": "pallas", "E_rel": 1e-3, "Delta_rel": 1e-3, **kw})
+    return CorrectionEngine(fft_impl="pallas", device=dev), cfg
+
+
+def phase_stream_field(dev, records, shape=(128, 128, 128), n_frames=5, n_odd=3, interval=4):
+    """``TemporalCodec`` in field mode through the pallas engine: ``n_frames``
+    of a slowly evolving lognormal field (``linear``, a keyframe every
+    ``interval``) with ``warm_start`` on, then off (kernels 3, 4); then
+    ``n_odd`` frames cropped to an odd last axis (kernels 1, 2).  Per-frame
+    iterations (warm against cold) and stage seconds; every frame decoded
+    and rechecked against the header's bounds in float64, every seek bitwise
+    the sequential decode; the loop's kernels held bitwise against their
+    twins at the first call of each shape."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.compressors import get_compressor
+    from repro_torch.core.temporal import TemporalCodec, TemporalConfig
+
+    t_phase = time.perf_counter()
+    frames = evolving_fields(shape, n_frames)
+    engine, cfg = pallas_engine_config(dev)
+    stream = TemporalConfig(mode="field", predictor="linear", keyframe_interval=interval)
+    totals, runs = {}, {}
+    for label, warm, fr, even in (("warm", True, frames, True), ("cold", False, frames, True),
+                                  ("odd_warm", True, [np.ascontiguousarray(f[..., :-1]) for f in frames[:n_odd]], False)):
+        codec = TemporalCodec(get_compressor("szlike"), dataclasses.replace(cfg, warm_start=warm), stream,
+                              engine=engine)
+        enc, data, per_frame, counts, captured = encode_stream(dev, codec, fr, path_wrappers(even))
+        hold_at_path_shapes("stream_field", records, captured)
+        del captured
+        check = check_stream("stream_field", codec, data, fr)
+        iters = [st["iterations"] for st in enc.frame_stats]
+        require(all(st["converged"] for st in enc.frame_stats), f"stream_field {label}: a frame did not converge")
+        runs[label] = iters
+        emit("stream_field", run=label, shape=list(fr[0].shape), frames=len(fr), warm_start=warm,
+             keyframe_interval=interval, iterations=iters, frame_seconds=per_frame, **check,
+             launches={k: v for k, v in counts.items() if v})
+        for k in EVEN_FIELD_KERNELS if even else ODD_FIELD_KERNELS:
+            totals[k] = totals.get(k, 0) + counts[k]
+    warm_res = [i for t, i in enumerate(runs["warm"]) if t % interval]
+    cold_res = [i for t, i in enumerate(runs["cold"]) if t % interval]
+    emit("stream_field", part="warm_vs_cold", residual_iterations_warm=warm_res, residual_iterations_cold=cold_res,
+         seconds=time.perf_counter() - t_phase)
+    launches_on_path(records, totals, "stream_field", EVEN_FIELD_KERNELS + ODD_FIELD_KERNELS)
+
+
+def phase_stream_eeg(dev, records, channels=128, samples=8192, n_frames=8, n_odd=3, odd_block=4095, interval=8,
+                     Delta_rel=1e-4):
+    """``TemporalCodec`` in pencil mode through the pallas engine on an EEG
+    recording built as ``examples/stream_eeg_torch.py`` builds it:
+    ``n_frames`` of (``channels``, ``samples``) with ``block=0`` (one pencil
+    a channel, even: kernels 3p, 4p), ``linear``, a keyframe every
+    ``interval``, ``warm_start`` on; then ``n_odd`` frames with
+    ``odd_block`` (1p, 2p).  The same rechecks and seeks as
+    :func:`phase_stream_field`.  ``Delta_rel`` is 1e-4: at 1e-3 the
+    correction never acts on these frames (a pink pencil's spectrum peaks
+    far above its base error's, so every pencil converges at its first
+    check and kernels 4p and 1p never launch), as for the KV pencils
+    (ROADMAP.md Queue 3)."""
+    from repro_torch.compressors import get_compressor
+    from repro_torch.core.temporal import TemporalCodec, TemporalConfig
+
+    if str(ROOT) not in sys.path:  # the example's recording, from the checkout
+        sys.path.insert(0, str(ROOT))
+    from examples.stream_eeg_torch import make_eeg_frames
+
+    t_phase = time.perf_counter()
+    frames = make_eeg_frames(n_frames, channels, samples)
+    engine, cfg = pallas_engine_config(dev, warm_start=True, Delta_rel=Delta_rel)
+    totals = {}
+    for label, fr, block, even in (("block0", frames, 0, True), ("odd_block", frames[:n_odd], odd_block, False)):
+        stream = TemporalConfig(mode="pencils", predictor="linear", keyframe_interval=interval, block=block)
+        codec = TemporalCodec(get_compressor("szlike"), cfg, stream, engine=engine)
+        enc, data, per_frame, counts, captured = encode_stream(dev, codec, fr, path_wrappers(even))
+        hold_at_path_shapes("stream_eeg", records, captured)
+        del captured
+        check = check_stream("stream_eeg", codec, data, fr)
+        require(all(st["converged"] for st in enc.frame_stats), f"stream_eeg {label}: a frame did not converge")
+        emit("stream_eeg", run=label, shape=[channels, samples], block=block or samples, frames=len(fr),
+             Delta_rel=Delta_rel,
+             iterations=[st["iterations"] for st in enc.frame_stats], frame_seconds=per_frame, **check,
+             launches={k: v for k, v in counts.items() if v})
+        for k in EVEN_PENCIL_KERNELS if even else ODD_PENCIL_KERNELS:
+            totals[k] = totals.get(k, 0) + counts[k]
+    emit("stream_eeg", part="done", seconds=time.perf_counter() - t_phase)
+    launches_on_path(records, totals, "stream_eeg", EVEN_PENCIL_KERNELS + ODD_PENCIL_KERNELS)
+
+
+def service_data(sizes=None):
+    """The service phases' inputs, from seed 0: whole fields (1024^2 and
+    128^3 lognormal), pencil tensors of 64 Ki - 1 Mi values, a 4-frame
+    stream of 512^2 and a live session's 4 frames of 1024^2."""
+    import numpy as np
+
+    from repro_torch.configs.ffcz_fields import FieldConfig
+    from repro_torch.data.fields import make_field
+
+    sz = dict(plane=1024, cube=128, n_plane=8, n_cube=2, n_pencils=16, pencil_lo=1 << 16, pencil_hi=1 << 20,
+              stream=512, frames=4)
+    sz.update(sizes or {})
+    rng = np.random.default_rng(0)
+    fields = [make_field(FieldConfig(f"plane-{i}", (sz["plane"],) * 2, "lognormal", alpha=2.0, seed=i))
+              for i in range(sz["n_plane"])]
+    fields += [make_field(FieldConfig(f"cube-{i}", (sz["cube"],) * 3, "lognormal", alpha=2.0, seed=100 + i))
+               for i in range(sz["n_cube"])]
+    # white, as gradients and KV tensors are near enough: at E_rel = Delta_rel
+    # = 1e-3 the correction acts on every bucket (a pink tensor's would not)
+    pencils = [rng.standard_normal(int(rng.integers(sz["pencil_lo"], sz["pencil_hi"] + 1))).astype(np.float32)
+               for _ in range(sz["n_pencils"])]
+    stream = evolving_fields((sz["stream"],) * 2, sz["frames"], name="stream")
+    session = evolving_fields((sz["plane"],) * 2, sz["frames"], name="session")
+    return {"fields": fields, "pencils": pencils, "stream": stream, "session": session}
+
+
+def run_service(dev, data, journal_dir, depth=2, injector=None, block=4096, max_batch=8, deadline_s=900.0):
+    """Drive ``FFCzService`` once over ``data``: the compressions, a live
+    session (appends, a duplicate retry, a finalize), then every produced
+    blob submitted for decode, a quarter of them with a bit flipped in their
+    middle.  Every request is admitted at once, so its latency holds the
+    whole queue ahead of it: ``deadline_s`` covers that (the service's
+    default of 30 s is a per-request budget for a stream of arrivals).
+    Returns (service, requests {uid: (kind, input)}, responses, corrupted
+    decode uids, seconds)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.compressors import get_compressor
+    from repro_torch.core.temporal import TemporalConfig
+    from repro_torch.serving import FFCzService, ServiceConfig
+
+    engine, cfg = pallas_engine_config(dev, crc=True)
+    svc = FFCzService(get_compressor("szlike"), engine=engine, injector=injector,
+                      config=ServiceConfig(max_batch=max_batch, block=block, pipeline_depth=depth,
+                                           deadline_s=deadline_s, session_journal_dir=str(journal_dir)))
+    reqs = {}
+    for x in data["fields"]:
+        reqs[svc.submit_compress(x, cfg)] = ("field", x)
+    for x in data["pencils"]:
+        reqs[svc.submit_pencils(x, 1e-3, 1e-3)] = ("pencils", x)
+    stream = TemporalConfig(mode="field", predictor="linear", keyframe_interval=2)
+    reqs[svc.submit_stream(data["stream"], dataclasses.replace(cfg, warm_start=True), stream)] = ("stream", data["stream"])
+    sid = svc.open_session(cfg, stream)
+    for t, x in enumerate(data["session"]):
+        reqs[svc.submit_append(sid, t, x)] = ("append", t)
+    reqs[svc.submit_append(sid, len(data["session"]) - 1, data["session"][-1])] = ("duplicate", len(data["session"]) - 1)
+    reqs[svc.submit_finalize(sid)] = ("finalize", data["session"])
+    t0 = time.perf_counter()
+    responses = dict(svc.drain())
+    compress_s = time.perf_counter() - t0
+    corrupted = set()
+    rng = np.random.default_rng(0)
+    blobs = [(uid, r.payload) for uid, r in responses.items() if r.ok and isinstance(r.payload, bytes)]
+    for i, (uid, blob) in enumerate(blobs):
+        if i % 4 == 3:  # a bit flipped in the middle third (every format there is CRC'd)
+            bad = bytearray(blob)
+            bad[len(bad) // 3 + int(rng.integers(0, len(bad) // 3))] ^= 1 << int(rng.integers(0, 8))
+            blob = bytes(bad)
+        d = svc.submit_decompress(blob, uid=f"dec-{uid}")
+        reqs[d] = ("decode", uid)
+        if i % 4 == 3:
+            corrupted.add(d)
+    t0 = time.perf_counter()
+    responses.update(svc.drain())
+    decode_s = time.perf_counter() - t0
+    svc.close()
+    return svc, reqs, responses, corrupted, {"compress_seconds": compress_s, "decode_seconds": decode_s}
+
+
+def decode_locally(svc, data):
+    """What the service's decode of ``data`` returns, without the service."""
+    import numpy as np
+
+    from repro_torch.core.ffcz import FFCz, FFCzBlob, FFCzConfig
+    from repro_torch.core.temporal import TemporalCodec, decode_pencil_blob
+
+    if data[:4] == b"FFCS":
+        return np.stack(TemporalCodec(svc.base, FFCzConfig(), engine=svc.engine).decompress_stream(data))
+    if data[:4] == b"FFSB":
+        return decode_pencil_blob(data, svc.base)
+    return FFCz(svc.base, FFCzConfig(), engine=svc.engine).decompress(FFCzBlob.from_bytes(data))
+
+
+def check_service(path, svc, reqs, responses, corrupted, faults=False):
+    """Every request drained to exactly one disposition; the corrupted
+    decodes alone rejected (and, without faults, nothing else); every
+    completed compression within its bounds, rechecked in float64 on the
+    decode the service returned (fields: the bounds the blob stores,
+    :func:`recheck`; pencils: the envelope's; streams and the session's
+    container: the header's, a frame at a time, :func:`claimed_margins`).
+    Returns the worst margins."""
+    import struct
+
+    import numpy as np
+
+    from repro_torch.core.ffcz import FFCzBlob
+    from repro_torch.core.temporal import TemporalStream
+
+    require(set(responses) == set(reqs), f"{path}: {len(set(reqs) - set(responses))} requests never drained")
+    require(svc.counters["completed"] + svc.counters["rejected"] == len(reqs),
+            f"{path}: completed + rejected != requests: {svc.counters}")
+    decoded = {reqs[u][1]: r.payload for u, r in responses.items() if reqs[u][0] == "decode" and r.ok}
+    worst = [np.inf, np.inf]
+    for uid, r in responses.items():
+        kind, what = reqs[uid]
+        if kind == "decode":
+            require(r.ok != (uid in corrupted), f"{path}: decode {uid} ok={r.ok}, corrupted={uid in corrupted}")
+            if not r.ok:
+                require(r.error["type"] == "BlobCorruptError", f"{path}: {uid} rejected as {r.error['type']}")
+            continue
+        if not faults:
+            require(r.ok, f"{path}: {kind} request {uid} rejected: {r.error}")
+        if not r.ok:
+            continue
+        if kind in ("append", "duplicate"):
+            require(r.payload.seq == what and r.payload.duplicate == (kind == "duplicate"),
+                    f"{path}: receipt {r.payload}")
+            continue
+        data = r.payload
+        # a blob whose decode request was corrupted decodes here instead
+        dec = decoded[uid] if uid in decoded else decode_locally(svc, data)
+        if kind == "field":
+            m = [recheck(what, dec, FFCzBlob.from_bytes(data))]
+        elif kind == "pencils":
+            E, Delta, block, _ = struct.unpack_from("<ddIB", data, 5)
+            m = [claimed_margins(what, dec, E, Delta, block)]
+        else:
+            s = TemporalStream.from_bytes(data)
+            m = [claimed_margins(x, d, s.E, s.Delta) for x, d in zip(what, dec)]
+        worst = [min(worst[0], *(a for a, _ in m)), min(worst[1], *(b for _, b in m))]
+        require(all(a >= 0 and b >= 0 for a, b in m), f"{path}: {kind} {uid} exceeds its bounds")
+    return worst
+
+
+def latency_summary(svc, reqs, responses):
+    """Latency percentiles, counters, timers and the rungs taken.  A
+    ``fallback:packed`` right after ``relax`` is counted apart
+    (``relax_fallbacks``): the kernels take relax == 1.0 only, so a pallas
+    request that did not converge re-runs on the packed transform, without
+    kernels 1-4 (the reference's ladder; ROADMAP.md Queue 3).  The other
+    fallbacks (``fault_fallbacks``) follow transient faults."""
+    import numpy as np
+
+    lat = np.asarray([r.stats.latency_s for r in responses.values()])
+    rungs = {}
+    relax_fallbacks = 0
+    for r in responses.values():
+        for i, g in enumerate(r.stats.rungs):
+            rungs[g] = rungs.get(g, 0) + 1
+            relax_fallbacks += g.startswith("fallback:") and i > 0 and r.stats.rungs[i - 1] == "relax"
+    fallbacks = sum(n for g, n in rungs.items() if g.startswith("fallback:"))
+    return {"requests": len(responses), "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3, "counters": dict(svc.counters),
+            "timers": dict(svc.timers), "session_counters": dict(svc.sessions.counters), "rungs": rungs,
+            "relax_fallbacks": relax_fallbacks, "fault_fallbacks": fallbacks - relax_fallbacks,
+            "rejected_by_type": {t: sum(1 for r in responses.values() if not r.ok and r.error["type"] == t)
+                                 for t in {r.error["type"] for r in responses.values() if not r.ok}}}
+
+
+def response_bytes(responses):
+    """Each response's payload as bytes (arrays by value, receipts by repr)
+    beside its stats minus latency: what must not depend on the depth."""
+    import dataclasses
+
+    import numpy as np
+
+    out = {}
+    for uid, r in responses.items():
+        p = r.payload
+        p = p if isinstance(p, bytes) else p.tobytes() if isinstance(p, np.ndarray) else repr(p).encode()
+        out[uid] = (r.ok, p, dataclasses.replace(r.stats, latency_s=0.0), r.error and r.error["type"])
+    return out
+
+
+def phase_service(dev, records, data, **kw):
+    """``FFCzService`` over the pallas engine (``max_batch=8``, ``block=4096``,
+    ``pipeline_depth=2``, file-backed session journals) on
+    :func:`service_data`: every request drains, the corrupted decodes alone
+    reject, every compression within its bounds in float64; no rung on any
+    request and ``fft_impl == "pallas"`` on every field response (a
+    fault-free run must not step down the ladder); then ``pipeline_depth=1``
+    on the same data: byte-identical responses.  The depth-2 run keeps the
+    first call of kernels 3, 4 (whole field and per pencil) at each shape,
+    held bitwise against the twins after it."""
+    import shutil
+
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    captured, undo = first_calls(*path_wrappers(even=True))
+    read = reset_launches()
+    try:
+        svc, reqs, res, corrupted, secs = run_service(dev, data, SERVICE_DIR / "depth2", depth=2, **kw)
+    finally:
+        undo()
+    counts = read()
+    hold_at_path_shapes("service", records, captured)
+    del captured
+    worst = check_service("service", svc, reqs, res, corrupted)
+    summary = latency_summary(svc, reqs, res)
+    fields = [u for u in res if reqs[u][0] == "field"]
+    require(not summary["rungs"], f"service: a fault-free run took rungs {summary['rungs']}")
+    require(all(res[u].stats.fft_impl == "pallas" for u in fields), "service: a field response left the pallas rung")
+    emit("service", depth=2, **secs, **summary, worst_spatial_margin=worst[0], worst_frequency_margin=worst[1],
+         launches={k: v for k, v in counts.items() if v})
+    launches_on_path(records, counts, "service", EVEN_FIELD_KERNELS + EVEN_PENCIL_KERNELS)
+    t0 = time.perf_counter()
+    svc1, reqs1, res1, _, secs1 = run_service(dev, data, SERVICE_DIR / "depth1", depth=1, **kw)
+    same_bytes = response_bytes(res) == response_bytes(res1)
+    emit("service", depth=1, **secs1, **latency_summary(svc1, reqs1, res1), byte_identical_to_depth2=same_bytes,
+         seconds=time.perf_counter() - t0)
+    require(list(res1) == list(res) and same_bytes, "service: depth 1 and depth 2 responses differ")
+    emit("service", part="done", seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+
+
+def phase_service_faults(dev, records, data, **kw):
+    """The same workload under ``FaultInjector(FaultConfig(p_codec=0.3,
+    p_dispatch=0.3, p_oom=0.5, max_per_site=2), seed=7)``: every request
+    drains, the ladder's ``fallback:packed`` and ``fallback:xla`` and a pencil
+    ``bisect`` each taken at least once, every completed result within its
+    bounds."""
+    import shutil
+
+    from repro_torch.runtime.faults import FaultConfig, FaultInjector
+
+    t_phase = time.perf_counter()
+    inj = FaultInjector(FaultConfig(p_codec=0.3, p_dispatch=0.3, p_oom=0.5, max_per_site=2), seed=7)
+    read = reset_launches()
+    svc, reqs, res, corrupted, secs = run_service(dev, data, SERVICE_DIR / "faults", injector=inj, **kw)
+    counts = read()
+    worst = check_service("service_faults", svc, reqs, res, corrupted, faults=True)
+    summary = latency_summary(svc, reqs, res)
+    emit("service_faults", **secs, **summary, worst_spatial_margin=worst[0], worst_frequency_margin=worst[1],
+         launches={k: v for k, v in counts.items() if v}, seconds=time.perf_counter() - t_phase)
+    for rung in ("fallback:packed", "fallback:xla", "bisect"):
+        require(summary["rungs"].get(rung, 0) > 0, f"service_faults: no request took {rung}: {summary['rungs']}")
+    launches_on_path(records, counts, "service_faults", EVEN_FIELD_KERNELS + EVEN_PENCIL_KERNELS)
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+
+
+def phase_session_recover(dev, records, frames, crash_after=2):
+    """A live session's ``.wal`` after ``crash_after`` appends, recovered by
+    a new ``FFCzService`` instance, which appends the rest and finalizes: the
+    container bitwise ``TemporalCodec.compress_stream`` of all the frames
+    (``warm_start=False``) on the card."""
+    import shutil
+
+    from repro_torch.compressors import get_compressor
+    from repro_torch.core.temporal import TemporalCodec, TemporalConfig
+    from repro_torch.serving import FFCzService, ServiceConfig
+
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    engine, cfg = pallas_engine_config(dev)
+    stream = TemporalConfig(mode="field", predictor="linear", keyframe_interval=2)
+    read = reset_launches()
+    first = FFCzService(get_compressor("szlike"), engine=engine,
+                        config=ServiceConfig(pipeline_depth=2, session_journal_dir=str(SERVICE_DIR / "a")))
+    sid = first.open_session(cfg, stream, session_id="recover")
+    uids = [first.submit_append(sid, t, frames[t]) for t in range(crash_after)]
+    res = first.drain()
+    require(all(res[u].ok for u in uids), "session_recover: an append before the crash failed")
+    first.close()
+    wal = (SERVICE_DIR / "a" / "recover.wal").read_bytes()
+    del first  # the crash: the session is never finalized
+    second = FFCzService(get_compressor("szlike"), engine=engine,
+                         config=ServiceConfig(pipeline_depth=2, session_journal_dir=str(SERVICE_DIR / "b")))
+    sid2 = second.sessions.recover(wal)
+    next_seq = second.sessions.next_seq(sid2)
+    dup = second.submit_append(sid2, crash_after - 1, frames[crash_after - 1])
+    rest = [second.submit_append(sid2, t, frames[t]) for t in range(crash_after, len(frames))]
+    fin = second.submit_finalize(sid2)
+    res = second.drain()
+    second.close()
+    counts = read()
+    require(next_seq == crash_after, f"session_recover: next_seq {next_seq}, want {crash_after}")
+    require(res[dup].ok and res[dup].payload.duplicate and res[dup].payload.restored,
+            f"session_recover: the duplicate retry answered {res[dup].payload}")
+    require(all(res[u].ok for u in rest) and res[fin].ok, "session_recover: an append or the finalize failed")
+    t0 = time.perf_counter()
+    want = TemporalCodec(get_compressor("szlike"), cfg, stream, engine=engine).compress_stream(frames)
+    compress_s = time.perf_counter() - t0
+    bitwise = res[fin].payload == want
+    emit("session_recover", frames=len(frames), shape=list(frames[0].shape), crash_after=crash_after,
+         wal_bytes=len(wal), next_seq=next_seq, container_bytes=len(want), bitwise_equal_to_compress_stream=bitwise,
+         compress_stream_seconds=compress_s, seconds=time.perf_counter() - t_phase,
+         launches={k: v for k, v in counts.items() if v})
+    require(bitwise, "session_recover: the recovered container differs from compress_stream's")
+    launches_on_path(records, counts, "session_recover", EVEN_FIELD_KERNELS)
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
 
 
 def recheck(x, dec, blob):
@@ -1585,6 +2182,16 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     phase_checkpoint(dev, records)
+
+    # the service path: temporal streams (field frames, EEG pencils), the
+    # FFCz service without and with injected faults, a recovered session
+    phase_stream_field(dev, records)
+    phase_stream_eeg(dev, records)
+    data = service_data()
+    phase_service(dev, records, data)
+    phase_service_faults(dev, records, data)
+    phase_session_recover(dev, records, data["session"])
+    del data
 
     # 9: summary
     kernels = [records[k] for k in KERNEL_ROWS]

@@ -2,15 +2,18 @@
 
 Modules: ``bounds``, ``cubes``, ``spectrum`` (math on tensors), ``pocs`` (the
 loop), ``engine`` (PLAN / EXECUTE / ENCODE), ``ffcz`` (the codec and its wire
-format), ``edits`` and ``errors``.  The reference's ``repro.core`` names that
-the port has are re-exported lazily (PEP 562): a name's module is imported
-on first access, so the kernels can import ``core.cubes`` without importing
-the engine.  The temporal codec is not ported yet (ROADMAP.md Queue 1).
+format), ``temporal`` (the stream codec), ``edits`` and ``errors``.  The
+reference's ``repro.core`` names are re-exported lazily (PEP 562): a name's
+module is imported on first access, so the kernels can import
+``core.cubes`` without importing the engine.
 """
 
 import importlib
 
 _EXPORTS = {
+    "TemporalCodec": "temporal",
+    "TemporalConfig": "temporal",
+    "TemporalStream": "temporal",
     "DualBounds": "bounds",
     "power_spectrum_delta": "bounds",
     "project_fcube": "cubes",

@@ -558,8 +558,8 @@ class CorrectionEngine:
 
         The loop runs in float32; a few exact host-side POCS iterations
         absorb the FFT round-off so the *shrunk* bounds hold in float64.
-        ``warm_freq`` (complex half-spectrum) seeds the loop's ``freq_edits``
-        only when ``plan.warm_start`` is True.
+        ``warm_freq`` (complex half-spectrum, an array or a tensor) seeds the
+        loop's ``freq_edits`` only when ``plan.warm_start`` is True.
         """
         return self.execute_field_async(eps0, plan, warm_freq=warm_freq).result()
 
@@ -592,8 +592,7 @@ class CorrectionEngine:
                 check_slack=0.5 * plan.slack_f,
                 fft_impl=plan.fft_impl,
                 check_every=plan.check_every,
-                warm_freq=None if warm_freq is None
-                else torch.from_numpy(np.asarray(warm_freq, dtype=np.complex64)).to(self.device),
+                warm_freq=warm_freq,  # the loop moves it to its device and dtype
             )
         except (RuntimeError, MemoryError) as e:
             # device dispatch / allocation failures carry stage + disposition

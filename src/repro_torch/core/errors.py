@@ -38,6 +38,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.build import KernelError
+
 
 class FFCzError(Exception):
     """Base of the FFCz failure taxonomy (see module docstring)."""
@@ -182,6 +184,31 @@ _OOM_MARKERS = (
 )
 
 
+# CUDA errors that leave the context unusable: every later call on it fails
+# the same way, so a retry or a lower rung cannot succeed
+_STICKY_CUDA_MARKERS = (
+    "illegal memory access",
+    "device-side assert",
+    "unspecified launch failure",
+    "misaligned address",
+)
+
+
+def is_kernel_fault(exc: BaseException) -> bool:
+    """A failure of the device code itself, not of one dispatch: one of the
+    port's kernels failed to build or launch (:class:`KernelError`), or CUDA
+    raised an error that poisons the context (``torch.AcceleratorError``, or
+    a sticky error's message).  Permanent: retrying it, or completing the
+    request on a lower ``fft_impl`` rung, would hide the fault."""
+    if isinstance(exc, KernelError):
+        return True
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    msg = str(exc)
+    return any(marker in msg for marker in _STICKY_CUDA_MARKERS)
+
+
 def is_oom(exc: BaseException) -> bool:
     """Device/host allocation failure, by type or by runtime message."""
     if isinstance(exc, (MemoryError, torch.cuda.OutOfMemoryError)):
@@ -194,11 +221,12 @@ def classify_exception(exc: BaseException, stage: str) -> FFCzError:
     """Map an arbitrary exception onto the taxonomy.
 
     Already-classified errors pass through (gaining ``stage`` if unset).
-    Allocation failures become :class:`ResourceExhausted` (bisect), OS-level
-    errors become :class:`HostCodecError` (retry), runtime/dispatch errors —
-    including CUDA launch and kernel faults, which PyTorch raises as
-    ``RuntimeError`` subclasses — become :class:`DeviceDispatchError`
-    (retry), and contract violations
+    Allocation failures become :class:`ResourceExhausted` (bisect); a kernel
+    that failed to build or launch and a sticky CUDA error
+    (:func:`is_kernel_fault`) become :class:`PermanentError` (reject: no
+    retry, no lower rung); OS-level errors become :class:`HostCodecError`
+    (retry); other runtime/dispatch errors become
+    :class:`DeviceDispatchError` (retry), and contract violations
     (``ValueError`` / ``TypeError`` / ``KeyError``) become
     :class:`PermanentError` (reject).  Anything else is conservatively
     permanent: an unknown failure must never spin a retry loop.
@@ -220,6 +248,8 @@ def classify_exception(exc: BaseException, stage: str) -> FFCzError:
         return PipelineAborted(msg, stage=stage, cause=exc)
     if is_oom(exc):
         return ResourceExhausted(msg, stage=stage, cause=exc)
+    if is_kernel_fault(exc):
+        return PermanentError(msg, stage=stage, cause=exc)
     if isinstance(exc, (OSError, EOFError)):
         return HostCodecError(msg, stage=stage, cause=exc)
     if isinstance(exc, RuntimeError):

@@ -17,6 +17,15 @@ one ``nvcc`` process per source, all started together).
 The module also holds the launch plumbing every wrapper shares: operand
 checks (:func:`check_cuda`), aligned copies (:func:`aligned`), bound operands
 (:func:`bound_operand`) and the error check after a launch (:func:`check`).
+
+A kernel that cannot be built (no ``nvcc``, an ``nvcc`` that fails or
+cannot be started, a build directory that cannot be written), whose
+library does not load, or whose launcher returns a CUDA error raises
+:class:`KernelError`: a permanent failure, which the error taxonomy never
+retries and the service's ladder never steps around
+(:func:`repro_torch.core.errors.classify_exception`).  The ``OSError`` of
+such a step is its ``__cause__``; left as it is, the taxonomy would read it
+as a transient host fault.
 """
 
 from __future__ import annotations
@@ -74,6 +83,13 @@ SIGNATURES = {
 MAX_NUMEL = 2**31 - 1
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """One of the port's kernels failed to build or to launch.  Permanent: the
+    same call fails the same way again, so no retry and no lower rung."""
+
+
 _lock = threading.Lock()
 
 
@@ -81,7 +97,7 @@ def nvcc() -> str:
     """Path of the CUDA compiler; raises when the toolkit is absent."""
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
-        raise RuntimeError("repro_torch: nvcc not found (needs the CUDA toolkit)")
+        raise KernelError("repro_torch: nvcc not found (needs the CUDA toolkit)")
     return found
 
 
@@ -115,8 +131,12 @@ def _start(name: str) -> Optional[tuple]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=out.name, suffix=".tmp", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        cmd = [nvcc(), *flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    except BaseException:
+        os.unlink(tmp)
+        raise
     return proc, tmp, out
 
 
@@ -127,7 +147,7 @@ def _finish(name: str, started: Optional[tuple]) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"repro_torch: nvcc failed for csrc/{name}.cu:\n{log}")
+        raise KernelError(f"repro_torch: nvcc failed for csrc/{name}.cu:\n{log}")
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent builder never sees half a file
 
@@ -137,9 +157,12 @@ def build_all() -> float:
     parallel; returns the wall seconds taken."""
     t0 = time.perf_counter()
     with _lock:
-        started = {name: _start(name) for name in SOURCES}
-        for name, s in started.items():
-            _finish(name, s)
+        try:
+            started = {name: _start(name) for name in SOURCES}
+            for name, s in started.items():
+                _finish(name, s)
+        except OSError as e:
+            raise KernelError(f"repro_torch: cannot build the kernel libraries: {e}") from e
     return time.perf_counter() - t0
 
 
@@ -151,11 +174,14 @@ def library(name: str) -> ctypes.CDLL:
         return lib
     with _lock:
         if name not in _libs:
-            _finish(name, _start(name))
-            lib = ctypes.CDLL(str(library_path(name)))
-            for fn, argtypes in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = list(argtypes)
-                getattr(lib, fn).restype = ctypes.c_int
+            try:
+                _finish(name, _start(name))
+                lib = ctypes.CDLL(str(library_path(name)))
+                for fn, argtypes in SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = list(argtypes)
+                    getattr(lib, fn).restype = ctypes.c_int
+            except (OSError, AttributeError) as e:  # AttributeError: a launcher missing
+                raise KernelError(f"repro_torch: cannot build or load csrc/{name}.cu: {e}") from e
             _libs[name] = lib
     return _libs[name]
 
@@ -163,7 +189,7 @@ def library(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if err != 0:
-        raise RuntimeError(f"repro_torch: {what} launch failed with cudaError_t {err}")
+        raise KernelError(f"repro_torch: {what} launch failed with cudaError_t {err}")
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:

@@ -78,7 +78,7 @@ def flash_attention(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err < 0:
-        raise RuntimeError(f"repro_torch: flash_attention: cuTensorMapEncodeTiled failed with CUresult {-err}")
+        raise build.KernelError(f"repro_torch: flash_attention: cuTensorMapEncodeTiled failed with CUresult {-err}")
     build.check(err, "flash_attention")
     launches["flash_attention"] += 1
     return out

@@ -1,10 +1,9 @@
-"""The port's packages export the reference's public names that it has.
+"""The port's packages export every public name of the reference's.
 
-For each package of the reference with an ``__all__``, every name that the
-port has ported is importable from the port's package of the same name and
-listed in its ``__all__``; the names still missing are exactly the ones the
-ROADMAP's queues carry (a name ported later moves from ``MISSING`` to the
-tested set, and this file says so).
+For each package of the reference with an ``__all__``, every name is
+importable from the port's package of the same name and listed in its
+``__all__``; no reference name is missing from the port (the temporal codec
+and the FFCz service, the last ones queued, landed with the service slice).
 """
 
 import importlib
@@ -13,20 +12,13 @@ import pytest
 
 PACKAGES = ("core", "serving", "checkpoint", "optim", "runtime", "data", "compressors", "coding", "kernels")
 
-#: reference names the port does not have yet, by package (ROADMAP.md Queue 1)
-MISSING = {
-    "core": {"TemporalCodec", "TemporalConfig", "TemporalStream"},
-    "serving": {"FFCzService", "ServiceConfig", "ServiceResponse", "RequestStats", "decode_pencil_blob",
-                "StreamSessionManager", "SessionStats", "FrameReceipt", "MemoryJournal", "FileJournal"},
-}
 
 
 def _reference_all(pkg):
     return list(getattr(importlib.import_module(f"repro.{pkg}"), "__all__", []))
 
 
-CASES = [(pkg, name) for pkg in PACKAGES for name in _reference_all(pkg)
-         if name not in MISSING.get(pkg, set())]
+CASES = [(pkg, name) for pkg in PACKAGES for name in _reference_all(pkg)]
 
 
 @pytest.mark.parametrize("pkg,name", CASES, ids=[f"{p}.{n}" for p, n in CASES])
@@ -39,12 +31,31 @@ def test_reference_name_is_exported(pkg, name):
     assert not obj.__module__.startswith("repro.")
 
 
-@pytest.mark.parametrize("pkg", sorted(MISSING))
-def test_missing_names_are_the_queued_ones(pkg):
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_no_reference_name_is_missing(pkg):
+    """Catches a name the reference adds later: the cases above are drawn
+    from its ``__all__`` too, but this one fails by name if any is absent."""
     port = importlib.import_module(f"repro_torch.{pkg}")
     ref = set(_reference_all(pkg))
-    assert MISSING[pkg] <= ref
-    assert {n for n in ref if not hasattr(port, n)} == MISSING[pkg]
+    assert {n for n in ref if not hasattr(port, n)} == set()
+    assert ref <= set(port.__all__)
+
+
+def test_serving_resolves_names_lazily():
+    """``repro_torch.serving`` imports the FFCz service without the LM
+    engine's model code, and the LM engine without the service."""
+    import subprocess
+    import sys
+
+    code = ("import sys, repro_torch.serving as s\n"
+            "assert 'repro_torch.serving.ffcz_service' not in sys.modules\n"
+            "s.FFCzService, s.MemoryJournal\n"
+            "assert 'repro_torch.serving.engine' not in sys.modules\n"
+            "assert 'repro_torch.models' not in sys.modules\n"
+            "s.ServingEngine\n"
+            "assert 'repro_torch.serving.engine' in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_core_resolves_names_lazily():

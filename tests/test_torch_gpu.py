@@ -700,3 +700,141 @@ def test_remat_modes_agree_on_the_card(dtype):
         for a, b in zip(out[m][1], out["none"][1]):
             assert float((a.float() - b.float()).abs().max()) <= 1e-6 * float(b.float().abs().max())
     assert out["none"][2] > out["dots"][2] >= out["full"][2]
+
+
+# -- the service path: temporal streams and the FFCz service on the card ------
+
+
+def _evolving(shape, n, white=False):
+    """Frames on which the loop acts at E_rel = Delta_rel = 1e-3 (it does not
+    on smooth data, whose spectrum peaks far above the base error's): an
+    evolving lognormal field, or white noise for pencils."""
+    from repro_torch.configs.ffcz_fields import FieldConfig
+    from repro_torch.data.fields import make_field
+
+    if white:
+        rng = np.random.default_rng(0)
+        base = rng.standard_normal(shape)
+        return [np.ascontiguousarray(base + 0.01 * t * rng.standard_normal(shape), dtype=np.float32)
+                for t in range(n)]
+    frames = [make_field(FieldConfig("f", shape, "lognormal", alpha=2.0, seed=0))]
+    for t in range(1, n):
+        fresh = make_field(FieldConfig("f", shape, "lognormal", alpha=2.0, seed=t))
+        frames.append((frames[-1] + 0.01 * fresh).astype(np.float32))
+    return frames
+
+
+def _stream_within_header(codec, data, frames):
+    from repro_torch.core.temporal import TemporalStream
+
+    s = TemporalStream.from_bytes(data)
+    dec = codec.decompress_stream(data)
+    for t, (x, d) in enumerate(zip(frames, dec)):
+        eps = d.astype(np.float64) - x.astype(np.float64)
+        assert np.abs(eps).max() <= s.E, t
+        if s.mode == "pencils":
+            flat = eps.reshape(-1)
+            spec = np.fft.rfft(flat[: flat.size // s.block * s.block].reshape(-1, s.block), axis=-1)
+        else:
+            spec = np.fft.rfftn(eps)
+        assert np.abs(spec.real).max() <= s.Delta and np.abs(spec.imag).max() <= s.Delta, t
+        assert np.array_equal(codec.decode_frame(data, t), d), t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kernels", [((32, 32, 32), ("rfft_fwd_epilogue", "unpack_sclip")),
+                                           ((32, 32, 31), ("fcube", "scube"))], ids=str)
+def test_field_stream_through_the_pallas_engine(shape, kernels):
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.core.temporal import TemporalCodec, TemporalConfig
+
+    dev = _cuda()
+    frames = _evolving(shape, 6)
+    codec = TemporalCodec(get_compressor("szlike"),
+                          FFCzConfig(E_rel=1e-3, Delta_rel=1e-3, fft_impl="pallas", warm_start=True),
+                          TemporalConfig(mode="field", keyframe_interval=3),
+                          engine=CorrectionEngine(fft_impl="pallas", device=dev))
+    ops = {"rfft_fwd_epilogue": t_rfft, "unpack_sclip": t_rfft, "fcube": t_fcube, "scube": t_scube}
+    before = {k: ops[k].launches[k] for k in kernels}
+    enc = codec.open_stream()
+    for x in frames:
+        enc.add_frame(x)
+    assert all(ops[k].launches[k] > before[k] for k in kernels)
+    assert enc._warm.device.type == "cuda"
+    _stream_within_header(codec, enc.finish(), frames)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block,kernels", [(0, ("rfft_fwd_epilogue_rows", "unpack_sclip_rows")),
+                                           (255, ("fcube_rows", "scube_rows"))], ids=str)
+def test_eeg_stream_through_the_pallas_engine(block, kernels):
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.core.temporal import TemporalCodec, TemporalConfig
+
+    dev = _cuda()
+    frames = _evolving((16, 512), 5, white=True)
+    codec = TemporalCodec(get_compressor("szlike"),
+                          FFCzConfig(E_rel=1e-3, Delta_rel=1e-3, fft_impl="pallas", warm_start=True),
+                          TemporalConfig(mode="pencils", keyframe_interval=4, block=block),
+                          engine=CorrectionEngine(fft_impl="pallas", device=dev))
+    ops = {"rfft_fwd_epilogue_rows": t_rfft, "unpack_sclip_rows": t_rfft, "fcube_rows": t_fcube,
+           "scube_rows": t_scube}
+    before = {k: ops[k].launches[k] for k in kernels}
+    data = codec.compress_stream(frames)
+    assert all(ops[k].launches[k] > before[k] for k in kernels)
+    _stream_within_header(codec, data, frames)
+
+
+@pytest.mark.gpu
+def test_service_depths_are_byte_identical_on_the_card():
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.core.temporal import TemporalConfig
+    from repro_torch.serving import FFCzService, ServiceConfig
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    fields = [rng.standard_normal((64, 64)).astype(np.float32).cumsum(axis=0) for _ in range(3)]
+    pencils = [rng.standard_normal(int(n)).astype(np.float32) for n in rng.integers(500, 5000, 6)]
+    frames = _evolving((32, 32), 3)
+    runs = []
+    for depth in (1, 2):
+        svc = FFCzService(get_compressor("szlike"), engine=CorrectionEngine(fft_impl="pallas", device=dev),
+                          config=ServiceConfig(max_batch=4, block=256, pipeline_depth=depth))
+        cfg = FFCzConfig(E_rel=1e-3, Delta_rel=1e-3, fft_impl="pallas", crc=True)
+        for x in fields:
+            svc.submit_compress(x, cfg)
+        for x in pencils:
+            svc.submit_pencils(x, 1e-3, 1e-3)
+        svc.submit_stream(frames, cfg, TemporalConfig(mode="field", keyframe_interval=2))
+        res = svc.drain()
+        svc.close()
+        assert all(r.ok and not r.stats.rungs for r in res.values())
+        assert all(r.stats.fft_impl == "pallas" for r in list(res.values())[:3])
+        runs.append([(u, r.payload, r.stats.attempts, r.stats.converged) for u, r in res.items()])
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.gpu
+def test_server_cli_serves_through_the_kernels_on_the_card(tmp_path):
+    """``python -m repro_torch.launch.serve_ffcz`` on the card builds a pallas
+    engine and pallas request configs: its fields and pencils launch the
+    correction kernels, and a fault-free run takes no rung."""
+    import os
+    import pathlib
+    import re
+    import subprocess
+    import sys
+
+    _cuda()
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_ffcz", "--requests", "12", "--field-size", "64",
+         "--block", "256", "--session-frac", "0.2", "--session-journal-dir", str(tmp_path)],
+        capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=str(root / "src")), cwd=root,
+        timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert "rungs=-" in out.stdout and not re.search(r"rungs=(?!-)", out.stdout)
+    line = next(ln for ln in out.stdout.splitlines() if ln.startswith("fft_impl="))
+    assert line.startswith("fft_impl=pallas")
+    for kernel in ("rfft_fwd_epilogue", "unpack_sclip", "rfft_fwd_epilogue_rows", "unpack_sclip_rows"):
+        assert re.search(rf"'{kernel}': [1-9]", line), line

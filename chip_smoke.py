@@ -8,8 +8,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``
 card at the main path's shapes, then drives ``FFCz.compress`` /
 ``FFCz.decompress`` with ``FFCzConfig(fft_impl="pallas")`` at full size and
 rechecks both stored bounds in float64, drives the qwen2-0.5b dense LM at
-full width (``ModelBundle.loss``, ``ServingEngine``, ``Trainer``), and the
-FFCz service path (temporal streams, ``FFCzService``, session recovery).
+full width (``ModelBundle.loss``, ``ServingEngine``, ``Trainer``), the moe,
+ssm and hybrid LM families at full width (``ModelBundle.loss``,
+``ServingEngine``), and the FFCz service path (temporal streams,
+``FFCzService``, session recovery).
 Phases, one JSON line each (or more):
 
   1 device    card name, count, nvidia-smi name and power limit
@@ -46,6 +48,27 @@ Phases, one JSON line each (or more):
               (kernels 3 and 4 per pencil) and "xla", and one correct call
               with block 1023 (kernels 1 and 2 per pencil): every pencil's
               bounds rechecked in float64 on the host
+  lm_family   the moe, ssm and hybrid LM families at full width (bf16,
+              random weights, attention_impl "pallas"): first the flash
+              kernel against its twin at their forward-loss shapes
+              ((4, 24, 8, 2048, 64) and zamba2's (4, 32, 32, 2048, 112);
+              lm part kernel), then for granite-moe-3b-a800m (32 layers),
+              mamba2-2.7b (64) and zamba2-7b (81: 13 groups + 3): the
+              forward loss of 4x2048 tokens (flash launches: one a layer,
+              one a group for zamba2's shared block, none for mamba2)
+              against a second correct forward within 1e-3 (naive
+              attention; mamba2: half the SSD chunk), a profile (idle
+              share), ServingEngine on 8 requests with decode logits
+              within 2e-2 of the floor (moe at a capacity where no pair
+              drops, then at the default for tokens/s), and (not mamba2)
+              KV compression of the nested cache at kv_Delta_rel 1e-4
+              through kernels 3p/4p: every pencil rechecked in float64,
+              the kernels' first calls held bitwise against the twins;
+              then in float32 (the gates of mamba2 and zamba2, whose
+              random-weight bf16 stacks carry one rounding into logit
+              differences of the logits' order): the loss of (2, 2048)
+              tokens within 1e-4 of the second forward, decode within
+              1e-4 + twice the floor
   train       Trainer on qwen2-0.5b at full width and depth (bf16 blocks,
               remat "dots", 4x2048 tokens a step) with FFCz gradient
               compression (grad_Delta_rel 5e-5: at the default 1e-2 the
@@ -477,6 +500,7 @@ def phase_flash(dev, heads=(4, 14, 2), lengths=FLASH_CASES):
     emit("lm", part="kernel", kernel="flash_attention", cases=cases)
     main = cases[0]
     d128 = next((c for c in cases if c["dtype"] == "bfloat16" and c["q"][-1] == 128), None)
+    f32 = cases[1]  # the main case's float32 twin
     return {
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:41", "launches": 0,
@@ -484,6 +508,7 @@ def phase_flash(dev, heads=(4, 14, 2), lengths=FLASH_CASES):
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "ms_d128": d128 and d128["ms"], "library_ms_d128": d128 and d128["library_ms"],
+        "ms_float32": f32["ms"], "bound_ms_float32": f32["bound_ms"],
     }
 
 
@@ -605,10 +630,10 @@ def device_profile(fn, top=6):
             "flash_kernel_ms": sum(v for k, v in device.items() if "flash_fwd" in k)}
 
 
-def profile_lm(bundle, params, batch):
+def profile_lm(bundle, params, batch, phase="lm", **labels):
     """Where the device time goes: torch.profiler over one forward loss and
     over 3 decode steps after a 380-token prefill of the batch's rows (4 at
-    full size), after the counted run."""
+    full size), after the counted run.  Returns the forward's profile."""
     import torch
 
     with torch.no_grad():
@@ -623,15 +648,18 @@ def profile_lm(bundle, params, batch):
             _, cache = bundle.decode(params, tokens[:, -1:], cache)
 
     decode = device_profile(decode3)
-    emit("lm", part="profile", forward_loss=forward, decode_3_steps=decode)
+    emit(phase, **labels, part="profile", forward_loss=forward, decode_3_steps=decode)
+    return forward
 
 
-def serve_and_check(cfg, params, requests, dev, check=True):
+def serve_and_check(cfg, params, requests, dev, check=True, floor_cfg=None, engine=None):
     """Serve ``requests`` (16 new tokens each, 4 per batch) on one engine and,
     with ``check``, hold the first request's last decode logits against
     cache-less forwards of its prefix, with the kernel (``diff``) and with
-    naive attention (``floor``: how far two correct forwards are apart).
-    Prefill, KV compression and decode are timed apart."""
+    ``floor_cfg`` (default: naive attention; ``floor``: how far two correct
+    forwards are apart).  ``engine`` replaces the serving engine's default
+    correction engine in KV compression.  Prefill, KV compression and decode
+    are timed apart."""
     import dataclasses
 
     import torch
@@ -661,7 +689,8 @@ def serve_and_check(cfg, params, requests, dev, check=True):
 
     eng._prefill, eng._decode = timed("prefill", eng._prefill), timed("decode", eng._decode)
     compress = serving_engine.compress_cache
-    serving_engine.compress_cache = timed("compress", compress)
+    serving_engine.compress_cache = timed("compress", compress if engine is None else (
+        lambda cache, comp, **kw: compress(cache, comp, **{**kw, "engine": engine})))
     t0 = time.perf_counter()
     done = []
     try:
@@ -681,7 +710,7 @@ def serve_and_check(cfg, params, requests, dev, check=True):
     with torch.no_grad():
         h, _ = params(prefix, cfg)
         want = _logits(params, h[:, -1:], cfg)[0, -1].float()
-        h, _ = params(prefix, dataclasses.replace(cfg, attention_impl="naive"))
+        h, _ = params(prefix, floor_cfg or dataclasses.replace(cfg, attention_impl="naive"))
         other = _logits(params, h[:, -1:], cfg)[0, -1].float()
     return {**out,
             "diff": float(torch.max(torch.abs(decode_logits[-1].float() - want))),
@@ -1027,6 +1056,217 @@ def phase_pencils(dev, records, cfg, params, tokens=(4, 2048), block=1024, kv_De
     emit("pencils", **case)
     launches_on_path(records, counts, "pencils", ("fcube_rows", "scube_rows"))
     del errs, cache
+
+
+# the LM families of the moe/ssm/hybrid slice, at full width: (arch, layers
+# run or None for the published depth)
+FAMILIES = (("granite-moe-3b-a800m", None), ("mamba2-2.7b", None), ("zamba2-7b", None))
+# the flash kernel at the families' attention shapes: (label, (b, hq, hkv), sq, sk, head dim)
+FAMILY_FLASH_CASES = (("granite_moe", (4, 24, 8), 2048, 2048, 64), ("zamba2_d112", (4, 32, 32), 2048, 2048, 112))
+
+
+def phase_flash_families(dev, record, cases=FAMILY_FLASH_CASES):
+    """The flash kernel against its twin at the families' forward-loss
+    shapes (phase_flash's bars, both dtypes): head dim 112 is zamba2-7b's.
+    Adds each case's bf16 and float32 times, bound and SDPA time to the
+    flash record under ``by_shape``."""
+    for label, heads, sq, sk, d in cases:
+        r = phase_flash(dev, heads=heads, lengths=((label, sq, sk, d),))
+        record["max_abs_err"] = max(record["max_abs_err"], r["max_abs_err"])
+        record.setdefault("by_shape", {})[label] = {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_float32", "bound_ms_float32")}
+
+
+def family_layers(cfg):
+    """Attention layers on a family's cache-less forward: every layer of a
+    dense or moe model, the shared block once a group of the hybrid, none
+    in mamba2."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def phase_lm_family(dev, records, arch, n_layers=None, cfg=None, tokens=(4, 2048), prompts=(4, 600),
+                    kv_Delta_rel=1e-4):
+    """One LM family at full width (``cfg`` None: ``arch``'s published
+    config, ``n_layers`` deep when given), bf16 blocks, random weights from
+    seed 0, ``attention_impl="pallas"``:
+
+      loss   the forward loss of a ``tokens`` batch, the flash kernel's
+             launches counted (one an attention layer), against a second
+             correct forward within 1e-3: naive attention, or for the
+             attention-free ssm the chunked scan at half the chunk (its
+             output must not depend on the chunking); then torch.profiler
+             over one forward and 3 decode steps (idle share)
+      serve  ServingEngine on 8 requests (prompts of ``prompts`` tokens, 16
+             new each, 4 a batch), the first request's last decode logits
+             against a cache-less forward within 2e-2 of the floor between
+             the two correct forwards; for moe at capacity_factor =
+             n_experts / top_k, where capacity >= tokens and no pair drops
+             (at the default factor prefill, decode and a one-row forward
+             route different token counts and drop differently), then again
+             at the default factor for tokens/s
+      serve_kv_compression  (not ssm) the same requests with KV compression
+             at ``kv_Delta_rel`` through a pallas engine: every correct call's
+             pencils rechecked in float64, kernels 3p/4p counted and their
+             first call at each shape held bitwise against the twins
+
+    Returns a summary of the family's metrics."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.models.model import build_model
+
+    cfg = cfg or get_config(arch, attention_impl="pallas", **({"n_layers": n_layers} if n_layers else {}))
+    phase = dict(arch=cfg.name, family=cfg.family, layers=cfg.n_layers)
+    bundle = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {"tokens": torch.randint(0, cfg.vocab, tokens, generator=gen, device=dev)}
+    # the second correct forward of the loss gate and of the decode floor
+    other_cfg = (dataclasses.replace(cfg, ssm_chunk=cfg.ssm_chunk // 2) if cfg.family == "ssm"
+                 else dataclasses.replace(cfg, attention_impl="naive"))
+    with torch.no_grad():
+        float(bundle.loss(params, batch))  # warm-up
+        read = reset_launches()
+        t0 = time.perf_counter()
+        loss = float(bundle.loss(params, batch))
+        forward_s = time.perf_counter() - t0
+        counts = read()
+        loss_other = float(build_model(other_cfg, device=dev).loss(params, batch))
+    rel = abs(loss - loss_other) / abs(loss_other)
+    want_launches = family_layers(cfg)
+    emit("lm_family", **phase, part="loss", tokens=list(tokens), init_seconds=init_s,
+         params=sum(p.numel() for p in params.parameters()), loss=loss, loss_other=loss_other, rel_diff=rel,
+         other="ssm_chunk // 2" if cfg.family == "ssm" else "naive attention", forward_seconds=forward_s,
+         launches={k: v for k, v in counts.items() if v}, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    require(np.isfinite(loss) and np.isfinite(loss_other), f"{arch}: loss is not finite")
+    # bf16 gates for moe; the random-weight mamba2 and zamba2 stacks carry one
+    # bf16 rounding into logit differences of the logits' own order, so
+    # theirs are reported here and gated in float32 below
+    bf16_gated = cfg.family == "moe"
+    require(rel <= 1e-3 or not bf16_gated,
+            f"{arch}: loss {loss} and the second forward's {loss_other} differ by {rel:.2e} > 1e-3")
+    require(counts["flash_attention"] == want_launches,
+            f"{arch}: {counts['flash_attention']} flash_attention launches, want {want_launches}")
+    if want_launches:
+        flash = records["flash_attention"]
+        flash["launches"] += counts["flash_attention"]
+        flash.setdefault("launches_by_path", {})[f"loss {cfg.name}"] = counts["flash_attention"]
+    forward = profile_lm(bundle, params, batch, "lm_family", **phase)
+
+    rng = np.random.default_rng(0)
+    lengths = [int(n) for n in rng.integers(prompts[0], prompts[1] + 1, 8)]
+    requests = [rng.integers(0, cfg.vocab, n) for n in lengths]
+    check_cfg = (dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k) if cfg.family == "moe"
+                 else cfg)
+    served = serve_and_check(check_cfg, params, requests, dev, floor_cfg=dataclasses.replace(
+        other_cfg, capacity_factor=check_cfg.capacity_factor))
+    bar = 2e-2 + served["floor"]
+    emit("lm_family", **phase, part="serve", requests=len(requests), prompt_lengths=lengths,
+         capacity_factor=check_cfg.capacity_factor, new_tokens=served["tokens"], seconds=served["seconds"],
+         tokens_per_s=served["tokens"] / served["seconds"], prefill_seconds=served["prefill_seconds"],
+         decode_seconds=served["decode_seconds"], decode_vs_cacheless_max_abs=served["diff"],
+         cacheless_floor_max_abs=served["floor"], bar=bar, logit_scale=served["scale"])
+    require(all(0 <= t < cfg.vocab for r in served["done"] for t in r["tokens"]), f"{arch}: token out of vocab")
+    require(served["diff"] <= bar or not bf16_gated, f"{arch}: bf16 decode logits differ from a cache-less "
+            f"forward by {served['diff']} > {bar} (2e-2 + the floor)")
+    summary = {"arch": cfg.name, "layers": cfg.n_layers, "forward_seconds": forward_s,
+               "forward_idle_share": forward["idle_share"], "serve_tokens_per_s": served["tokens"] / served["seconds"]}
+    if cfg.family == "moe":
+        plain = serve_and_check(cfg, params, requests, dev, check=False)
+        summary["serve_tokens_per_s"] = plain["tokens"] / plain["seconds"]
+        emit("lm_family", **phase, part="serve_default_capacity", capacity_factor=cfg.capacity_factor,
+             new_tokens=plain["tokens"], seconds=plain["seconds"], tokens_per_s=summary["serve_tokens_per_s"],
+             prefill_seconds=plain["prefill_seconds"], decode_seconds=plain["decode_seconds"])
+
+    if cfg.family != "ssm":  # the reference serves mamba2 without KV compression too
+        cfg_kv = dataclasses.replace(cfg, compression=dataclasses.replace(
+            cfg.compression, kv_cache_compression=True, kv_Delta_rel=kv_Delta_rel))
+        pallas = CorrectionEngine(backend="batched", fft_impl="pallas", device=dev)
+        calls = []
+        correct = pallas.correct
+
+        def recording(errs, Es, Ds, **kw):
+            out = correct(errs, Es, Ds, **kw)
+            calls.append((errs, Es, Ds, out, kw["block"]))
+            return out
+
+        pallas.correct = recording
+        captured, undo = first_calls(*path_wrappers(even=True))
+        read = reset_launches()
+        try:
+            served_kv = serve_and_check(cfg_kv, params, requests, dev, check=False, engine=pallas)
+        finally:
+            undo()
+            del pallas.correct
+        counts = read()
+        t0 = time.perf_counter()
+        worst_s = worst_f = 0.0
+        n_values = n_pencils = 0
+        for errs, Es, Ds, (corrected, stats), blk in calls:
+            require(bool(stats.converged.all()), f"{arch}: a KV pencil did not converge")
+            s_, f_ = recheck_pencils(errs, Es, Ds, corrected, blk)
+            worst_s, worst_f = max(worst_s, s_), max(worst_f, f_)
+            n_values += sum(e.numel() for e in errs)
+            n_pencils += int(stats.block_iterations.numel())
+        recheck_s = time.perf_counter() - t0
+        differ = sum(a != b for r0, r1 in zip(served["done"], served_kv["done"])
+                     for a, b in zip(r0["tokens"], r1["tokens"]))
+        emit("lm_family", **phase, part="serve_kv_compression", kv_Delta_rel=kv_Delta_rel,
+             correct_calls=len(calls), sub_tensors=sum(len(c[0]) for c in calls), values=n_values,
+             pencils=n_pencils, new_tokens=served_kv["tokens"], seconds=served_kv["seconds"],
+             tokens_per_s=served_kv["tokens"] / served_kv["seconds"],
+             prefill_seconds=served_kv["prefill_seconds"], compress_seconds=served_kv["compress_seconds"],
+             decode_seconds=served_kv["decode_seconds"], worst_abs_over_E=worst_s,
+             worst_spectrum_over_Delta=worst_f, recheck_seconds=recheck_s,
+             tokens_differing_from_uncompressed=differ, launches={k: v for k, v in counts.items() if v})
+        require(len(calls) == 2, f"{arch}: {len(calls)} correct calls, want one a batch (2)")
+        require(all(0 <= t < cfg.vocab for r in served_kv["done"] for t in r["tokens"]),
+                f"{arch}: token out of vocab with KV compression")
+        launches_on_path(records, counts, f"serve {cfg.name}")
+        del calls
+        hold_at_path_shapes(f"lm_family {cfg.name}", records, captured)
+        summary.update(compress_seconds=served_kv["compress_seconds"], kv_values=n_values)
+    del params, bundle
+    torch.cuda.empty_cache()
+
+    # float32 at full width: the loss of a (2, 2048) batch against the second
+    # correct forward, and one batch of 4 requests' decode logits against a
+    # cache-less forward and its floor
+    cfg32 = dataclasses.replace(check_cfg, dtype="float32")
+    params32 = build_model(cfg32, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    batch32 = {"tokens": batch["tokens"][:2]}
+    with torch.no_grad():
+        loss32 = float(build_model(cfg32, device=dev).loss(params32, batch32))
+        other32 = dataclasses.replace(other_cfg, dtype="float32", capacity_factor=cfg32.capacity_factor)
+        loss32_other = float(build_model(other32, device=dev).loss(params32, batch32))
+    rel32 = abs(loss32 - loss32_other) / abs(loss32_other)
+    served32 = serve_and_check(cfg32, params32, requests[:4], dev, floor_cfg=other32)
+    del params32
+    torch.cuda.empty_cache()
+    emit("lm_family", **phase, part="float32", tokens=list(batch32["tokens"].shape), loss=loss32,
+         loss_other=loss32_other, rel_diff=rel32, decode_vs_cacheless_max_abs=served32["diff"],
+         cacheless_floor_max_abs=served32["floor"], bar=1e-4 + 2 * served32["floor"],
+         logit_scale=served32["scale"])
+    require(np.isfinite(loss32) and rel32 <= 1e-4,
+            f"{arch}: float32 loss {loss32} and the second forward's {loss32_other} differ by {rel32:.2e} > 1e-4")
+    # a cache fault moves the logits by their own order (~4); rounding moves
+    # the decode path (a recurrence, a cache) about as far as it moves the
+    # second cache-less forward, which for the deep ssm stacks is ~4e-3
+    bar32 = 1e-4 + 2 * served32["floor"]
+    require(served32["diff"] <= bar32, f"{arch}: float32 decode logits differ from a cache-less forward by "
+            f"{served32['diff']} > {bar32} (1e-4 + twice the floor)")
+    summary.update(float32_loss_rel=rel32, float32_decode_diff=served32["diff"])
+    return summary
 
 
 # checkpoints of the train and checkpoint phases: under build/ (ignored by
@@ -2164,7 +2404,7 @@ def main() -> int:
     emit("lm", part="flash_build", sass=sass, ptxas=ptxas)
     require(sass["HGMMA"] > 0, "flash_attention: no HGMMA (wgmma) in the library's SASS")
     require(sass["UTMALDG"] + sass["UBLKCP"] > 0, "flash_attention: no TMA load in the library's SASS")
-    require(no_spills(ptxas, 4), f"flash_attention: ptxas reports spills or misses a kernel: {ptxas}")
+    require(no_spills(ptxas, 6), f"flash_attention: ptxas reports spills or misses a kernel: {ptxas}")
     records["flash_attention"] = phase_flash(dev)
     cfg_lm, params = phase_lm(dev, records["flash_attention"])
 
@@ -2173,6 +2413,12 @@ def main() -> int:
     phase_pencils(dev, records, cfg_lm, params)
     del params
     torch.cuda.empty_cache()
+
+    # the moe, ssm and hybrid LM families at full width; the flash kernel
+    # at their attention shapes (head dim 112: zamba2-7b)
+    phase_flash_families(dev, records["flash_attention"])
+    families = [phase_lm_family(dev, records, arch, n_layers) for arch, n_layers in FAMILIES]
+    emit("lm_family", part="summary", families=families)
 
     # the training path: Trainer with compressed gradients, failure and
     # resume; one step's gradients through the pallas engine; an FFCz

@@ -1,13 +1,14 @@
 """Architecture registry of the LM framework, and the paper's field configs.
 
 ``ArchConfig`` and ``CompressionConfig`` are the reference's field for field
-(names and defaults, and the ``vocab_padded``/``resolved_head_dim``
-properties the ported models read), so one config means the same thing to
-both packages.  ``get_config(name)`` returns an arch's full published config and
+(names and defaults, and the properties the ported models read:
+``vocab_padded``, ``n_experts_padded``, ``resolved_head_dim``, ``d_inner``,
+``ssm_nheads``), so one config means the same thing to both packages.
+``get_config(name)`` returns an arch's full published config and
 ``get_smoke_config(name)`` its reduced same-family config; only the archs
-the port has brought up are known to them (the others raise
-``NotImplementedError``).  The field configurations of the paper's
-experiments are in :mod:`.ffcz_fields`.
+the port has brought up are known to them (the vlm and audio archs raise
+``NotImplementedError``, naming the slice that ports them).  The field
+configurations of the paper's experiments are in :mod:`.ffcz_fields`.
 """
 
 from __future__ import annotations
@@ -29,8 +30,29 @@ ARCH_IDS = (
     "whisper-tiny",
 )
 
-#: the archs whose config module the port has
-PORTED_ARCH_IDS = ("qwen2-0.5b",)
+#: the archs whose config module the port has: the dense, moe, ssm and hybrid families
+PORTED_ARCH_IDS = (
+    "qwen2-0.5b",
+    "qwen2-7b",
+    "granite-3-2b",
+    "minitron-4b",
+    "granite-moe-3b-a800m",
+    "llama4-maverick-400b-a17b",
+    "mamba2-2.7b",
+    "zamba2-7b",
+)
+
+#: the families whose models the port has not brought up yet
+UNPORTED_FAMILIES = ("vlm", "audio")
+NEXT_SLICE = "ROADMAP.md Queue 1, item 5b: the vlm and audio slice"
+
+#: (seq_len, global_batch, kind) per shape cell
+SHAPES = {
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +128,26 @@ class ArchConfig:
         return ((self.vocab + 127) // 128) * 128
 
     @property
+    def n_experts_padded(self) -> int:
+        """Experts padded to a multiple of 16 (dead experts are never routed:
+        the router stays at ``n_experts``)."""
+        return ((self.n_experts + 15) // 16) * 16 if self.n_experts else 0
+
+    @property
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode state => long_500k is runnable."""
+        return self.family in ("ssm", "hybrid")
 
 
 _MODULES = {arch: arch.replace("-", "_").replace(".", "_") for arch in ARCH_IDS}
@@ -118,7 +158,7 @@ def _module(name: str):
         raise ValueError(f"unknown arch {name!r}; have {sorted(_MODULES)}")
     if name not in PORTED_ARCH_IDS:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP.md Queue 1, slice 6); ported: {PORTED_ARCH_IDS}"
+            f"arch {name!r} is not ported yet ({NEXT_SLICE}); ported: {PORTED_ARCH_IDS}"
         )
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 

@@ -10,8 +10,8 @@ plain numpy arrays and Python scalars (for example
 with ``None`` kept as ``None``) and build the port's dataclass, so one
 package's PLAN can feed the other's EXECUTE and one's result the other's
 ENCODE.  For the LM framework, ``lm_params_from_reference`` turns a
-reference parameter tree into the port model's ``state_dict`` and
-``lm_params_to_reference`` goes back; ``opt_state_from_reference`` /
+reference parameter tree (dense, moe, ssm or hybrid) into the port model's
+``state_dict`` and ``lm_params_to_reference`` goes back; ``opt_state_from_reference`` /
 ``opt_state_to_reference`` do the same for AdamW's ``{"m", "v", "step"}``.
 The trainer checkpoints ``(params, opt_state)`` in the reference's layout,
 so a checkpoint directory restores in either package.
@@ -116,56 +116,101 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+#: subtrees of the reference's LM parameter tree whose leaves carry a leading
+#: stacked axis, one entry a layer or group (``stack_init``): the dense and
+#: ssm ``layers``, the moe and hybrid ``groups``, inside a moe group its
+#: ``dense_blocks`` and inside a hybrid group its ``mamba`` blocks, and the
+#: hybrid's mamba ``tail``
+_STACKED = ("layers", "groups", "dense_blocks", "mamba", "tail")
+
+
+def _stack_sizes(cfg) -> dict:
+    """The length of each stacked axis of ``cfg``'s parameter tree."""
+    if cfg.family in ("dense", "ssm"):
+        return {"layers": cfg.n_layers}
+    if cfg.family == "moe":
+        return {"groups": cfg.n_layers // cfg.moe_every, "dense_blocks": cfg.moe_every - 1}
+    if cfg.family == "hybrid":
+        n_groups = cfg.n_layers // cfg.attn_every
+        return {"groups": n_groups, "mamba": cfg.attn_every, "tail": cfg.n_layers - n_groups * cfg.attn_every}
+    from repro_torch.configs import NEXT_SLICE
+
+    raise NotImplementedError(f"family {cfg.family!r} has no parameter tree in the port yet ({NEXT_SLICE})")
+
+
 def lm_params_from_reference(params_np: dict, cfg) -> dict:
-    """The port's ``DenseLM`` state dict from a reference dense-LM parameter tree.
+    """The port model's state dict from a reference LM parameter tree.
 
     ``params_np`` is the tree ``repro.models.model.build_model(cfg).init``
     returns, with numpy leaves (``jax.tree.map(np.asarray, params)``) or
-    torch tensors; its ``layers`` subtree is stacked on a leading layer axis
-    (``stack_init``), which becomes one ``layers.<i>.`` prefix per layer.
-    Values and dtypes are kept exactly; a tensor leaf's layers are views of
-    it.
+    torch tensors.  Each stacked subtree (:data:`_STACKED`: ``layers``,
+    ``groups``, a group's ``dense_blocks`` or ``mamba``, ``tail``) is split
+    along its leading axis into one ``<name>.<i>.`` prefix an entry, nested
+    as the stacks nest (``groups.<g>.mamba.<j>.in_proj``).  Values and dtypes
+    are kept exactly (the moe experts stay padded to ``n_experts_padded``,
+    the router not); a tensor leaf's entries are views of it.
     """
-    _check_dense(cfg)
+    sizes = _stack_sizes(cfg)
     out = {}
 
-    def walk(tree, prefix, layer=None):
+    def walk(tree, prefix, index):
         for name, v in tree.items():
             key = f"{prefix}{name}"
-            if isinstance(v, dict):
-                walk(v, key + ".", layer)
+            if isinstance(v, dict) and name in _STACKED:
+                n = {tuple(leaf.shape)[len(index)] for leaf in _leaves(v)}
+                if n != {sizes.get(name)}:
+                    raise ValueError(f"stacked axis of {key!r} is {sorted(n)}, want {sizes.get(name)} for {cfg.name}")
+                for i in range(sizes[name]):
+                    walk(v, f"{key}.{i}.", index + (i,))
+            elif isinstance(v, dict):
+                walk(v, key + ".", index)
             elif isinstance(v, torch.Tensor):
-                out[key] = v if layer is None else v[layer]
+                out[key] = v[index] if index else v
             else:
-                out[key] = _tensor(v if layer is None else np.asarray(v)[layer])
+                out[key] = _tensor(np.asarray(v)[index] if index else v)
 
-    walk({k: v for k, v in params_np.items() if k != "layers"}, "")
-    n = {v.shape[0] for v in _leaves(params_np["layers"])}
-    if n != {cfg.n_layers}:
-        raise ValueError(f"layer axis {sorted(n)} does not match n_layers={cfg.n_layers}")
-    for i in range(cfg.n_layers):
-        walk(params_np["layers"], f"layers.{i}.", layer=i)
+    walk(params_np, "", ())
     return out
 
 
 def lm_params_to_reference(state_dict, cfg) -> dict:
-    """The reference's dense-LM parameter tree from a mapping with the port's
+    """The reference's LM parameter tree from a mapping with the port's
     ``state_dict`` keys (parameters, gradients or AdamW moments): nested
-    dicts, every ``layers.<i>.<path>`` tensor stacked on a leading layer axis
-    under ``layers.<path>``.  Tensors stay on their device and dtype."""
-    _check_dense(cfg)
-    tree, layers = {}, {}
+    dicts, the entries of each stacked subtree stacked on its leading axis
+    (inner stacks first, so a moe group's dense blocks are ``(n_groups,
+    moe_every - 1, ...)``).  Tensors stay on their device and dtype."""
+    sizes = _stack_sizes(cfg)
+    tree: dict = {}
     for key, t in state_dict.items():
-        path = key.split(".")
-        if path[0] == "layers":
-            layers.setdefault(int(path[1]), {})[tuple(path[2:])] = t
-        else:
-            _put(tree, path, t)
-    if sorted(layers) != list(range(cfg.n_layers)):
-        raise ValueError(f"layers {sorted(layers)} do not match n_layers={cfg.n_layers}")
-    for path in layers[0]:
-        _put(tree, ("layers",) + path, torch.stack([layers[i][path] for i in range(cfg.n_layers)]))
-    return tree
+        path, node, i = key.split("."), tree, 0
+        while i < len(path) - 1:
+            node = node.setdefault(path[i], {})
+            if path[i] in _STACKED:
+                node = node.setdefault(int(path[i + 1]), {})
+                i += 1
+            i += 1
+        node[path[-1]] = t
+
+    def finish(node):
+        out = {}
+        for name, v in node.items():
+            if not isinstance(v, dict):
+                out[name] = v
+            elif name in _STACKED:
+                if sorted(v) != list(range(sizes.get(name, -1))):
+                    raise ValueError(f"{name} entries {sorted(v)} do not match {sizes.get(name)} for {cfg.name}")
+                out[name] = _stack_trees([finish(v[i]) for i in range(sizes[name])])
+            else:
+                out[name] = finish(v)
+        return out
+
+    return finish(tree)
+
+
+def _stack_trees(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def opt_state_to_reference(state: dict, cfg) -> dict:
@@ -178,17 +223,6 @@ def opt_state_from_reference(state: dict, cfg) -> dict:
     """The inverse of :func:`opt_state_to_reference`."""
     return {"m": lm_params_from_reference(state["m"], cfg), "v": lm_params_from_reference(state["v"], cfg),
             "step": state["step"]}
-
-
-def _check_dense(cfg) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported (ROADMAP.md Queue 1, slice 6)")
-
-
-def _put(tree: dict, path, v) -> None:
-    for name in path[:-1]:
-        tree = tree.setdefault(name, {})
-    tree[path[-1]] = v
 
 
 def _leaves(tree):

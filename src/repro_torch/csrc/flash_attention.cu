@@ -5,7 +5,7 @@
 // (flash_attention_pallas, wrapper flash_attention/ops.py::flash_attention).
 //
 // Shapes: q (b, hq, sq, D), k and v (b, hkv, sk, D), out like q; all
-// contiguous, D in {64, 128}.  Query head h reads kv head h / group (GQA by
+// contiguous, D in {64, 112, 128} (112 is zamba2-7b's head dim).  Query head h reads kv head h / group (GQA by
 // index: K/V are never repeated).  Suffix causality: query row i sits at kv
 // position (sk - sq) + i and sees kv columns 0 .. (sk - sq) + i.  A kv tile
 // that lies wholly after a query tile's last real row is never loaded (the
@@ -234,8 +234,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int hq
 //     the diagonal or the ragged sk edge.
 // The tensor maps are 3-D, (D, s, b*h), with boxes of (64, rows, 1) and the
 // 128-byte swizzle (so D = 128 takes two boxes per row block): rows past sq or
-// sk come in as zeros instead of the next head's rows.  The output is stored
-// from registers as bf16 pairs, rows past sq masked.
+// sk come in as zeros instead of the next head's rows.  A D that is not a
+// multiple of 64 (112) is laid out in shared memory at the padded width DP
+// (128): the second box's columns past D lie outside the tensor map and TMA
+// fills them with zeros, so Q K^T takes D / 16 steps over real columns only
+// and O = P V runs at width DP with its last DP - D columns zero, never
+// stored.  The output is stored from registers as bf16 pairs, rows past sq
+// masked.
 namespace sm90_bf16 {
 
 using namespace repro_torch::sm90;
@@ -252,9 +257,12 @@ constexpr int kRowBytes = 128;  // one swizzled row of a 64-column box
 
 template <int D>
 struct Smem {
-  static constexpr int kBoxes = D / 64;  // 64-column boxes per row block
-  static constexpr uint32_t kQ = kBQ * D * 2;
-  static constexpr uint32_t kKV = kBKV * D * 2;  // one K or one V tile
+  // D rounded up to whole 64-column boxes: the width of every tile in
+  // shared memory and of the P V product
+  static constexpr int kDP = (D + 63) / 64 * 64;
+  static constexpr int kBoxes = kDP / 64;  // 64-column boxes per row block
+  static constexpr uint32_t kQ = kBQ * kDP * 2;
+  static constexpr uint32_t kKV = kBKV * kDP * 2;  // one K or one V tile
   static constexpr uint32_t kBars = 8 * (1 + 3 * kStages);
   // + 1024: the dynamic base is rounded up to the swizzle atom
   static constexpr size_t kBytes = kQ + 2 * kStages * kKV + kBars + 1024;
@@ -266,6 +274,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int hq,
                int hkv, int sq, int sk, float scale_log2, int causal) {
   using S = Smem<D>;
+  constexpr int DP = S::kDP;
+  static_assert(D % 16 == 0, "a wgmma k-step is 16 columns");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t s_k = s_q + S::kQ, s_v = s_k + kStages * S::kKV;
@@ -324,9 +334,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     const int qpos0 = q0 + r0 + offset, qpos1 = qpos0 + 8;  // kv positions of its rows
     const int wg_first = q0 + 64 * wg + offset;  // kv position of the warpgroup's first row
 
-    float o[D / 2];
+    float o[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
 
     const uint32_t s_qw = s_q + wg * 64 * kRowBytes;  // this warpgroup's 64 rows of each box
@@ -338,7 +348,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       const int k0 = t * kBKV;
       const uint32_t s_kt = s_k + s * S::kKV, s_vt = s_v + s * S::kKV;
 
-      // S = Q K^T over D in steps of 16: box kk / 4, 32 bytes a step inside it
+      // S = Q K^T over the D real columns in steps of 16: box kk / 4, 32
+      // bytes a step inside it
       float sc[kBKV / 2];
       mbar_wait(k_full(s), parity);
       fence_regs(sc);
@@ -383,7 +394,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       l0 *= corr0;
       l1 *= corr1;
 #pragma unroll
-      for (int i = 0; i < D / 2; i += 4) {
+      for (int i = 0; i < DP / 2; i += 4) {
         o[i] *= corr0;
         o[i + 1] *= corr0;
         o[i + 2] *= corr1;
@@ -414,8 +425,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 #pragma unroll
       for (int kk = 0; kk < kBKV / 16; ++kk) {
         const uint64_t dv = desc_sw128(s_vt + kk * 16 * kRowBytes, kBKV * kRowBytes, 1024);
-        wgmma_rs<D>(o, p_hi[kk], dv, 1);
-        wgmma_rs<D>(o, p_lo[kk], dv, 1);
+        wgmma_rs<DP>(o, p_hi[kk], dv, 1);
+        wgmma_rs<DP>(o, p_lo[kk], dv, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -424,7 +435,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       if (lane == 0) mbar_arrive(empty(s));
     }
 
-    // epilogue: the quad's partial row sums, then O / l as bf16 pairs
+    // epilogue: the quad's partial row sums, then O / l as bf16 pairs over
+    // the D real columns
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
@@ -464,7 +476,8 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// A (heads, rows, D) bf16 array as a 3-D map with (64, box_rows, 1) boxes.
+// A (heads, rows, D) bf16 array as a 3-D map with (64, box_rows, 1) boxes;
+// a box's columns at or past d read as zeros.
 CUresult encode(PFN_cuTensorMapEncodeTiled_v12000 fn, CUtensorMap* map, const void* ptr,
                 int heads, int rows, int d, int box_rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads};
@@ -501,7 +514,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int hq
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  d: 64 or 128.  Returns a cudaError_t,
+// dtype: 0 = float32, 1 = bfloat16.  d: 64, 112 or 128.  Returns a cudaError_t,
 // or -CUresult when a bf16 operand's TMA tensor map does not encode.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int b, int hq, int hkv, int sq, int sk, int d, int dtype,
@@ -510,9 +523,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (hkv <= 0 || hq % hkv != 0 || sk <= 0 || (causal && sq > sk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && d == 64) return launch<float, 64>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, s);
+  if (dtype == 0 && d == 112) return launch<float, 112>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, s);
   if (dtype == 0 && d == 128) return launch<float, 128>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, s);
   if (dtype == 1 && d == 64)
     return sm90_bf16::launch<64>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, s);
+  if (dtype == 1 && d == 112)
+    return sm90_bf16::launch<112>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, s);
   if (dtype == 1 && d == 128)
     return sm90_bf16::launch<128>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, s);
   return (int)cudaErrorInvalidValue;

@@ -9,8 +9,9 @@ copy pass (p = 0.5 copy the previous token) so the loss signal is
 learnable.  The draws come from torch's generator, not ``jax.random``'s
 threefry stream, so the two packages' batches differ (as ``DenseLM.init_``
 differs from the reference's init); a parity test feeds both the same
-batch.  Batches are made on the host.  Only token batches are ported: the
-``vlm`` and ``audio`` inputs raise, as ``build_model`` does for them.
+batch.  Batches are made on the host.  Only token batches are ported (the
+dense, moe, ssm and hybrid families take tokens only): the ``vlm`` and
+``audio`` inputs raise, as ``build_model`` does for them.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.configs import NEXT_SLICE, UNPORTED_FAMILIES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,9 +41,7 @@ class TokenPipeline:
 
     def __post_init__(self):
         if self.vision_tokens or self.audio_frames:
-            raise NotImplementedError(
-                "vision and audio inputs are not ported yet (ROADMAP.md Queue 1, slice 6)"
-            )
+            raise NotImplementedError(f"vision and audio inputs are not ported yet ({NEXT_SLICE})")
 
     @property
     def shard_batch(self) -> int:
@@ -68,9 +69,7 @@ class TokenPipeline:
 
 def pipeline_for(cfg, seq_len: int, global_batch: int, seed: int = 0, n_shards: int = 1,
                  shard: int = 0) -> TokenPipeline:
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue 1, slice 6)"
-        )
+    if cfg.family in UNPORTED_FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet ({NEXT_SLICE})")
     return TokenPipeline(vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch,
                          seed=seed, n_shards=n_shards, shard=shard)

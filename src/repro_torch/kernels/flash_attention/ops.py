@@ -23,7 +23,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 launches = {"flash_attention": 0}
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,9 +1,13 @@
 """Serve entry point: batched greedy decode over a stream of random prompts.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 8
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --preset full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu
 
-``--device`` defaults to ``cuda`` (the port does not fall back to the CPU).
+``--arch`` takes every arch the port has brought up (dense, moe, ssm,
+hybrid); ``--preset full`` is the published config with random weights from
+a seed, ``smoke`` the reduced one.  ``--device`` defaults to ``cuda`` (the
+port does not fall back to the CPU).
 """
 
 from __future__ import annotations
@@ -13,13 +17,13 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.configs import CompressionConfig, get_config, get_smoke_config
+from repro_torch.configs import PORTED_ARCH_IDS, CompressionConfig, get_config, get_smoke_config
 from repro_torch.serving.engine import ServeConfig, ServingEngine
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=PORTED_ARCH_IDS)
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new-tokens", type=int, default=16)

@@ -2,7 +2,7 @@
 
 ``build_model(cfg, device=None)`` returns a :class:`ModelBundle`:
 
-  init(generator)                    -> params (a :class:`DenseLM`)
+  init(generator)                    -> params (an :class:`LM`)
   load(state_dict)                   -> params from a state dict (port only;
                                         see ``convert.lm_params_from_reference``)
   loss(params, batch)                -> scalar CE loss (teacher-forced scoring)
@@ -11,15 +11,37 @@
   init_cache(batch_size, max_len)    -> cache
 
 The reference ``lax.scan``s one block over parameters stacked on a layer
-axis; here the layers are an ``nn.ModuleList`` run by a Python loop, and the
-cache holds each layer's K and V stacked on a leading layer axis.  ``loss``
-is differentiable (``launch/steps.make_train_step`` runs autograd through
-it, each block checkpointed per ``cfg.remat``); callers that only score call
-it under ``torch.no_grad()``.  The flash-attention kernel has no backward,
-nor has the reference's Pallas kernel: with ``attention_impl="pallas"`` a
-loss that autograd records raises on the card, and training runs the
-default ``"xla_flash"``.  ``prefill`` and ``decode`` run under
-``torch.no_grad()``.  Only ``family="dense"`` is ported.
+(or layer-group) axis; here the layers and groups are ``nn.ModuleList``s
+run by a Python loop.  Families: ``dense`` (:class:`DenseLM`), ``moe``
+(:class:`MoELM`, groups of ``moe_every`` layers), ``ssm`` (:class:`SSMLM`,
+mamba2) and ``hybrid`` (:class:`ZambaLM`, zamba2); ``vlm`` and ``audio``
+raise.
+
+Caches keep the reference's leaves, each stacked on its leading layer (and
+group) axes as the reference's scan stacks them, with one Python-int
+``pos`` for the whole model instead of a per-layer array:
+
+  dense   {"k", "v": (n_layers, b, hkv, S, hd), "pos"}
+  moe     {"moe": {"k", "v": (n_groups, b, hkv, S, hd)},
+           "dense": {"k", "v": (n_groups, moe_every - 1, b, hkv, S, hd)}
+                    (only when moe_every > 1), "pos"}
+  ssm     {"conv": (n_layers, b, k - 1, conv_dim), "state": (n_layers, b, h, p, n)}
+          (O(1) in max_len; no pos: the blocks are attention-free)
+  hybrid  {"groups": {"attn": {"k", "v": (n_groups, b, hkv, S, hd)},
+                      "mamba": {"conv": (n_groups, attn_every, b, k - 1, conv_dim),
+                                "state": (n_groups, attn_every, b, h, p, n)}},
+           "tail": {"conv", "state"} stacked on the tail's layers (when
+                   n_layers % attn_every), "pos"}
+
+K/V are in ``cfg.dtype``, mamba ``conv`` too, ``state`` in float32.  The
+cache is updated in place and returned with ``pos`` advanced.  ``loss`` is
+differentiable (``launch/steps.make_train_step`` runs autograd through it,
+each block or group checkpointed per ``cfg.remat``); callers that only
+score call it under ``torch.no_grad()``.  The flash-attention kernel has
+no backward, nor has the reference's Pallas kernel: with
+``attention_impl="pallas"`` a loss that autograd records raises on the
+card, and training runs the default ``"xla_flash"``.  ``prefill`` and
+``decode`` run under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -30,12 +52,12 @@ from typing import Callable, Mapping, Optional
 import torch
 from torch import nn
 
-from repro_torch.configs import ArchConfig
+from repro_torch.configs import NEXT_SLICE, UNPORTED_FAMILIES, ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.attention import init_kv_cache
 from repro_torch.models.layers import RMSNorm, cross_entropy_loss, dense_init, dtype_of, embed_init, rmsnorm
-from repro_torch.models.transformer import DenseBlock, remat_wrap
-
-_UNPORTED_FAMILIES = ("moe", "ssm", "hybrid", "vlm", "audio")
+from repro_torch.models.ssm import Mamba2, init_mamba_cache
+from repro_torch.models.transformer import DenseBlock, MoEGroup, ZambaGroup, ZambaShared, remat_wrap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,12 +74,11 @@ class ModelBundle:
 
 def build_model(cfg: ArchConfig, device=None) -> ModelBundle:
     """The bundle for ``cfg`` on ``device`` (``None`` means ``"cuda"``)."""
-    if cfg.family == "dense":
-        return _build_dense(cfg, resolve_device(device))
-    if cfg.family in _UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue 1, slice 6)"
-        )
+    builders = {"dense": _build_dense, "moe": _build_moe, "ssm": _build_ssm, "hybrid": _build_zamba}
+    if cfg.family in builders:
+        return builders[cfg.family](cfg, resolve_device(device))
+    if cfg.family in UNPORTED_FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet ({NEXT_SLICE})")
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -65,12 +86,14 @@ def build_model(cfg: ArchConfig, device=None) -> ModelBundle:
 # shared pieces
 
 
-class DenseLM(nn.Module):
-    """Embedding, a stack of :class:`DenseBlock`, final norm and LM head.
+class LM(nn.Module):
+    """Embedding, final norm and LM head around a family's blocks.
 
     ``state_dict`` keys follow the reference's parameter tree: ``embed``,
-    ``ln_f.scale``, ``lm_head`` (untied only) and ``layers.<i>.<path>``.
-    Head parameters are in ``cfg.param_dtype``, the blocks in ``cfg.dtype``.
+    ``ln_f.scale``, ``lm_head`` (untied only), then the family's blocks with
+    one ``<stack>.<i>.`` prefix per entry of a stacked axis (``layers``,
+    ``groups``, a group's ``dense_blocks`` or ``mamba``, ``tail``).  Head
+    parameters are in ``cfg.param_dtype``, the blocks in ``cfg.dtype``.
     """
 
     def __init__(self, cfg: ArchConfig, device=None):
@@ -81,16 +104,14 @@ class DenseLM(nn.Module):
         self.ln_f = RMSNorm(cfg.d_model, pd, device)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty((cfg.d_model, v), dtype=pd, device=device))
-        self.layers = nn.ModuleList(DenseBlock(cfg, device) for _ in range(cfg.n_layers))
 
     @torch.no_grad()
-    def init_(self, gen: torch.Generator) -> "DenseLM":
+    def init_(self, gen: torch.Generator, cfg: ArchConfig) -> "LM":
         v, d = self.embed.shape
         self.embed.copy_(embed_init(gen, v, d, self.embed.dtype))
         if hasattr(self, "lm_head"):
             self.lm_head.copy_(dense_init(gen, d, v, self.lm_head.dtype))
-        for layer in self.layers:
-            layer.init_(gen)
+        self.init_blocks_(gen, cfg)
         return self
 
     def forward(self, tokens: torch.Tensor, cfg: ArchConfig, cache: Optional[dict] = None,
@@ -98,7 +119,21 @@ class DenseLM(nn.Module):
         """Final hidden states (b, s, d) and the cache (None without one).
         ``cfg`` is the config the bundle was built with, as the reference's
         backbone takes it."""
-        x = _embed(self, tokens, cfg)
+        return self.backbone(_embed(self, tokens, cfg), cfg, cache, from_zero)
+
+
+class DenseLM(LM):
+    """``layers``: a stack of :class:`DenseBlock`."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__(cfg, device)
+        self.layers = nn.ModuleList(DenseBlock(cfg, device) for _ in range(cfg.n_layers))
+
+    def init_blocks_(self, gen, cfg):
+        for layer in self.layers:
+            layer.init_(gen)
+
+    def backbone(self, x, cfg, cache, from_zero):
         if cache is None:
             for layer in self.layers:
                 x, _ = remat_wrap(layer, cfg.remat)(x, cfg)
@@ -106,10 +141,116 @@ class DenseLM(nn.Module):
         for i, layer in enumerate(self.layers):
             c = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"]}
             x, _ = layer(x, cfg, cache=c, from_zero=from_zero)
-        return x, {"k": cache["k"], "v": cache["v"], "pos": cache["pos"] + tokens.shape[1]}
+        return x, {**cache, "pos": cache["pos"] + x.shape[1]}
 
 
-def _logits(params: DenseLM, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+class MoELM(LM):
+    """``groups``: ``n_layers // moe_every`` :class:`MoEGroup`."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__(cfg, device)
+        self.groups = nn.ModuleList(MoEGroup(cfg, device) for _ in range(_moe_groups(cfg)))
+
+    def init_blocks_(self, gen, cfg):
+        for group in self.groups:
+            group.init_(gen)
+
+    def backbone(self, x, cfg, cache, from_zero):
+        if cache is None:
+            for group in self.groups:
+                x, _ = remat_wrap(group, cfg.remat)(x, cfg)
+            return x, None
+        pos = cache["pos"]
+        for g, group in enumerate(self.groups):
+            caches = {name: {"k": kv["k"][g], "v": kv["v"][g], "pos": pos}
+                      for name, kv in cache.items() if name != "pos"}
+            x, _ = group(x, cfg, caches=caches, from_zero=from_zero)
+        return x, {**cache, "pos": pos + x.shape[1]}
+
+
+class SSMLM(LM):
+    """``layers``: a stack of :class:`Mamba2` blocks with residuals."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__(cfg, device)
+        self.layers = nn.ModuleList(Mamba2(cfg, device) for _ in range(cfg.n_layers))
+
+    def init_blocks_(self, gen, cfg):
+        for layer in self.layers:
+            layer.init_(gen, cfg)
+
+    def backbone(self, x, cfg, cache, from_zero):
+        del from_zero  # attention-free
+        return _mamba_stack(self.layers, x, cfg, cache)
+
+
+class ZambaLM(LM):
+    """``shared`` (:class:`ZambaShared`), ``groups`` (``n_layers //
+    attn_every`` :class:`ZambaGroup`) and ``tail`` (the remaining
+    :class:`Mamba2` blocks, absent when ``attn_every`` divides
+    ``n_layers``)."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__(cfg, device)
+        n_groups, tail = _zamba_groups(cfg)
+        self.shared = ZambaShared(cfg, device)
+        self.groups = nn.ModuleList(ZambaGroup(cfg, device) for _ in range(n_groups))
+        if tail:
+            self.tail = nn.ModuleList(Mamba2(cfg, device) for _ in range(tail))
+
+    def init_blocks_(self, gen, cfg):
+        self.shared.init_(gen)
+        for group in self.groups:
+            group.init_(gen, cfg)
+        for layer in getattr(self, "tail", ()):
+            layer.init_(gen, cfg)
+
+    def backbone(self, x, cfg, cache, from_zero):
+        embed0 = x  # the embeddings, fed to every call of the shared block
+        if cache is None:
+            for group in self.groups:
+                x, _ = remat_wrap(group, cfg.remat)(x, self.shared, embed0, cfg)
+        else:
+            pos, gc = cache["pos"], cache["groups"]
+            for g, group in enumerate(self.groups):
+                caches = {"attn": {"k": gc["attn"]["k"][g], "v": gc["attn"]["v"][g], "pos": pos},
+                          "mamba": {k: t[g] for k, t in gc["mamba"].items()}}
+                x, _ = group(x, self.shared, embed0, cfg, caches=caches, from_zero=from_zero)
+        if hasattr(self, "tail"):
+            x, _ = _mamba_stack(self.tail, x, cfg, None if cache is None else cache["tail"])
+        if cache is None:
+            return x, None
+        return x, {**cache, "pos": cache["pos"] + x.shape[1]}
+
+
+def _mamba_stack(layers, x, cfg, cache):
+    """Residual mamba2 blocks; ``cache`` (``conv``/``state`` stacked on the
+    layer axis) is updated in place and returned."""
+    for i, layer in enumerate(layers):
+        if cache is None:
+            x = remat_wrap(lambda h, blk=layer: h + blk(h, cfg)[0], cfg.remat)(x)
+            continue
+        out, nc = layer(x, cfg, cache={k: t[i] for k, t in cache.items()})
+        x = x + out
+        for k, t in nc.items():
+            cache[k][i].copy_(t)
+    return x, cache
+
+
+def _moe_groups(cfg: ArchConfig) -> int:
+    n_groups = cfg.n_layers // cfg.moe_every
+    if n_groups * cfg.moe_every != cfg.n_layers:
+        raise ValueError(f"moe_every={cfg.moe_every} must divide n_layers={cfg.n_layers}")
+    return n_groups
+
+
+def _zamba_groups(cfg: ArchConfig):
+    """(groups, tail layers): 81 layers at attn_every 6 are 13 groups and 3."""
+    n_groups = cfg.n_layers // cfg.attn_every
+    return n_groups, cfg.n_layers - n_groups * cfg.attn_every
+
+
+def _logits(params: LM, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = rmsnorm(params.ln_f.scale, h, cfg.norm_eps)
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = h @ w.to(h.dtype)
@@ -119,7 +260,7 @@ def _logits(params: DenseLM, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return logits
 
 
-def _embed(params: DenseLM, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _embed(params: LM, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     # gather then cast: the same values as the reference's cast-then-gather
     return params.embed[tokens].to(dtype_of(cfg.dtype))
 
@@ -128,46 +269,97 @@ def _lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
 
 
-# ---------------------------------------------------------------------------
-# dense
+def _bundle(cfg: ArchConfig, device: torch.device, lm_class, init_cache: Callable) -> ModelBundle:
+    """The family-independent functions around ``lm_class`` and its cache."""
 
-
-def _build_dense(cfg: ArchConfig, device: torch.device) -> ModelBundle:
     def tokens_of(batch) -> torch.Tensor:
         return torch.as_tensor(batch["tokens"], device=device).to(torch.int64)
 
-    def init(gen: torch.Generator) -> DenseLM:
+    def init(gen: torch.Generator) -> LM:
         if gen.device.type != device.type:
             raise ValueError(f"generator is on {gen.device}, the model on {device}")
-        return DenseLM(cfg, device).init_(gen)
+        return lm_class(cfg, device).init_(gen, cfg)
 
-    def load(state_dict: Mapping[str, torch.Tensor]) -> DenseLM:
-        params = DenseLM(cfg, device="meta")
+    def load(state_dict: Mapping[str, torch.Tensor]) -> LM:
+        params = lm_class(cfg, device="meta")
         want = params.state_dict()
         sd = {k: torch.as_tensor(v).to(device, want[k].dtype if k in want else None)
               for k, v in state_dict.items()}
         params.load_state_dict(sd, strict=True, assign=True)
         return params
 
-    def loss(params: DenseLM, batch) -> torch.Tensor:
+    def loss(params: LM, batch) -> torch.Tensor:
         tokens = tokens_of(batch)
         h, _ = params(tokens, cfg)
         return _lm_loss(_logits(params, h, cfg), tokens)
 
+    @torch.no_grad()
+    def prefill(params: LM, batch, cache: dict):
+        h, cache = params(tokens_of(batch), cfg, cache=cache, from_zero=True)
+        return _logits(params, h[:, -1:], cfg), cache
+
+    @torch.no_grad()
+    def decode(params: LM, tokens, cache: dict):
+        h, cache = params(tokens_of({"tokens": tokens}), cfg, cache=cache)
+        return _logits(params, h, cfg), cache
+
+    return ModelBundle(cfg, device, init, load, loss, prefill, decode, init_cache)
+
+
+def _stacked(make: Callable, *lead: int) -> dict:
+    """``make()``'s tensors with zeros stacked on leading axes ``lead``."""
+    return {k: t.new_zeros(lead + tuple(t.shape)) for k, t in make().items() if isinstance(t, torch.Tensor)}
+
+
+# ---------------------------------------------------------------------------
+# families
+
+
+def _build_dense(cfg: ArchConfig, device: torch.device) -> ModelBundle:
     def init_cache(batch_size: int, max_len: int) -> dict:
         shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, max_len, cfg.resolved_head_dim)
         dtype = dtype_of(cfg.dtype)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
 
-    @torch.no_grad()
-    def prefill(params: DenseLM, batch, cache: dict):
-        h, cache = params(tokens_of(batch), cfg, cache=cache, from_zero=True)
-        return _logits(params, h[:, -1:], cfg), cache
+    return _bundle(cfg, device, DenseLM, init_cache)
 
-    @torch.no_grad()
-    def decode(params: DenseLM, tokens, cache: dict):
-        h, cache = params(tokens_of({"tokens": tokens}), cfg, cache=cache)
-        return _logits(params, h, cfg), cache
 
-    return ModelBundle(cfg, device, init, load, loss, prefill, decode, init_cache)
+def _kv(cfg: ArchConfig, device, batch_size: int, max_len: int) -> Callable:
+    return lambda: init_kv_cache(batch_size, cfg.n_kv_heads, max_len, cfg.resolved_head_dim,
+                                 dtype_of(cfg.dtype), device)
+
+
+def _build_moe(cfg: ArchConfig, device: torch.device) -> ModelBundle:
+    n_groups = _moe_groups(cfg)
+
+    def init_cache(batch_size: int, max_len: int) -> dict:
+        kv = _kv(cfg, device, batch_size, max_len)
+        c = {"moe": _stacked(kv, n_groups), "pos": 0}
+        if cfg.moe_every > 1:
+            c["dense"] = _stacked(kv, n_groups, cfg.moe_every - 1)
+        return c
+
+    return _bundle(cfg, device, MoELM, init_cache)
+
+
+def _build_ssm(cfg: ArchConfig, device: torch.device) -> ModelBundle:
+    def init_cache(batch_size: int, max_len: int) -> dict:
+        del max_len  # O(1) state: what lets the ssm family decode the long cells
+        return _stacked(lambda: init_mamba_cache(batch_size, cfg, dtype_of(cfg.dtype), device), cfg.n_layers)
+
+    return _bundle(cfg, device, SSMLM, init_cache)
+
+
+def _build_zamba(cfg: ArchConfig, device: torch.device) -> ModelBundle:
+    n_groups, tail = _zamba_groups(cfg)
+
+    def init_cache(batch_size: int, max_len: int) -> dict:
+        mc = lambda: init_mamba_cache(batch_size, cfg, dtype_of(cfg.dtype), device)  # noqa: E731
+        c = {"groups": {"attn": _stacked(_kv(cfg, device, batch_size, max_len), n_groups),
+                        "mamba": _stacked(mc, n_groups, cfg.attn_every)}, "pos": 0}
+        if tail:
+            c["tail"] = _stacked(mc, tail)
+        return c
+
+    return _bundle(cfg, device, ZambaLM, init_cache)

@@ -15,7 +15,9 @@
     same directory resumes.
 
 ``device=None`` means ``"cuda"`` (raises without a card).  A device mesh is
-not ported: ``mesh`` must be ``None`` (ROADMAP.md Queue 1, slice 6).
+not ported: ``mesh`` must be ``None`` (ROADMAP.md Queue 1, item 5d).  Only
+the dense family trains: the moe, ssm and hybrid models serve and score in
+the port but their training is ROADMAP.md Queue 1, item 5c.
 """
 
 from __future__ import annotations
@@ -68,7 +70,11 @@ class Trainer:
                  optimizer: Optional[AdamW] = None, device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "training over a device mesh is not ported to repro_torch yet (ROADMAP.md Queue 1, slice 6)"
+                "training over a device mesh is not ported to repro_torch yet (ROADMAP.md Queue 1, item 5d)"
+            )
+        if arch_cfg.family != "dense":
+            raise NotImplementedError(
+                f"training the {arch_cfg.family!r} family is not ported yet (ROADMAP.md Queue 1, item 5c)"
             )
         self.cfg = arch_cfg
         self.run = run_cfg

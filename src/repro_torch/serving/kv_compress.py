@@ -10,9 +10,14 @@ quantize+correct round trip.
 ``compress_cache`` quantizes every K/V sub-tensor of the cache and corrects
 ALL the quantization errors in ONE :meth:`CorrectionEngine.correct` call
 (per-sub-tensor bounds, per-pencil convergence), as the reference does.  The
-port's cache is a dict whose ``k`` and ``v`` are ``(n_layers, b, hkv, S,
-hd)``: each splits into ``n_layers`` sub-tensors (the reference's
-``ndim > 4`` branch); ``pos`` is left alone.
+cache is a nested dict (``models/model.py`` gives each family's layout);
+every leaf named ``k`` or ``v`` with at least 4 dimensions is compressed,
+wherever it sits, as the reference's walk of the cache pytree finds them.
+A leaf ``(..., b, hkv, S, hd)`` with leading layer or group axes splits into
+one sub-tensor per ``(b, hkv, S, hd)`` (the reference's ``ndim > 4``
+branch); leaves are taken in the reference's order (sorted keys, depth
+first).  Every other leaf (``pos``, the mamba ``conv`` and ``state``) is
+passed through untouched.
 """
 
 from __future__ import annotations
@@ -72,6 +77,24 @@ def compress_kv_tensor(
     return (xt + corrected_err).transpose(-2, -1).to(kv.dtype)
 
 
+def _kv_leaves(cache: dict, path=()):
+    """(path, leaf) of each ``k``/``v`` leaf with ndim >= 4, in the
+    order ``jax.tree_util`` flattens a dict (sorted keys, depth first)."""
+    for name in sorted(cache):
+        v = cache[name]
+        if isinstance(v, dict):
+            yield from _kv_leaves(v, path + (name,))
+        elif name in ("k", "v") and getattr(v, "ndim", 0) >= 4:
+            yield path + (name,), v
+
+
+def _replaced(tree: dict, path, value) -> dict:
+    """A copy of ``tree`` (the dicts along ``path`` copied) with ``value`` at ``path``."""
+    out = dict(tree)
+    out[path[0]] = value if len(path) == 1 else _replaced(tree[path[0]], path[1:], value)
+    return out
+
+
 def compress_cache(
     cache: dict,
     comp,
@@ -81,41 +104,41 @@ def compress_cache(
     max_iters: int = 8,
     engine: Optional[CorrectionEngine] = None,
 ) -> dict:
-    """Apply KV compression to the ``k``/``v`` leaves of a cache dict.
+    """Apply KV compression to every ``k``/``v`` leaf of a (nested) cache dict.
 
-    Returns a new dict (the input's tensors are not written).  All layers'
+    Returns a new dict (the input's tensors are not written; leaves that
+    are not compressed are the input's).  All leaves' and layers'
     quantization errors are corrected by ONE ``engine.correct`` call with
     per-sub-tensor ``E``/``Delta``; ``engine`` defaults to
     :func:`default_engine` of the cache's device.
     """
-    kv_names = [k for k in ("k", "v") if getattr(cache.get(k), "ndim", 0) >= 4]
-    if not kv_names:
+    kv = list(_kv_leaves(cache))
+    if not kv:
         return cache
-    device = cache[kv_names[0]].device
+    device = kv[0][1].device
     engine = engine or default_engine(device)
     delta_scale = _f32(comp.kv_Delta_rel * block, device)
 
-    prepped = []  # (name, n_sub, start in errs)
+    def subs(leaf):
+        return leaf.reshape((-1,) + tuple(leaf.shape[-4:])) if leaf.ndim > 4 else leaf[None]
+
+    starts = []  # each leaf's first index in errs
     errs, Es, Ds = [], [], []
-    for name in kv_names:
-        leaf = cache[name]
-        sub = leaf.reshape((-1,) + tuple(leaf.shape[-4:])) if leaf.ndim > 4 else leaf[None]
-        start = len(errs)
-        _xt, err, E = _quantize_pencils(sub, bits, comp.kv_E_rel, batched=True)
+    for _path, leaf in kv:
+        starts.append(len(errs))
+        _xt, err, E = _quantize_pencils(subs(leaf), bits, comp.kv_E_rel, batched=True)
         errs.extend(err[j] for j in range(err.shape[0]))
         Es.extend(E[j] for j in range(E.shape[0]))
         Ds.extend(delta_scale * E[j] for j in range(E.shape[0]))
-        prepped.append((name, sub.shape[0], start))
-    del _xt, err
+        del _xt, err
 
     corrected, _stats = engine.correct(errs, Es, Ds, block=block, max_iters=max_iters)
     del errs
 
-    out = dict(cache)
-    for name, n_sub, start in prepped:
-        leaf = cache[name]
-        sub = leaf.reshape((-1,) + tuple(leaf.shape[-4:])) if leaf.ndim > 4 else leaf[None]
+    out = cache
+    for (path, leaf), start in zip(kv, starts):
+        sub = subs(leaf)
         xt = sub.to(torch.float32).transpose(-2, -1)
-        corr = torch.stack([corrected[start + j] for j in range(n_sub)])
-        out[name] = (xt + corr).transpose(-2, -1).reshape(leaf.shape).to(leaf.dtype)
+        corr = torch.stack([corrected[start + j] for j in range(sub.shape[0])])
+        out = _replaced(out, path, (xt + corr).transpose(-2, -1).reshape(leaf.shape).to(leaf.dtype))
     return out

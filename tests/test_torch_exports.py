@@ -72,3 +72,30 @@ def test_core_resolves_names_lazily():
             "try:\n    c.nothing\nexcept AttributeError:\n    pass\nelse:\n    raise SystemExit(1)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def _defined_in(module):
+    """The public functions and classes a reference module defines itself."""
+    mod = importlib.import_module(module)
+    return sorted(n for n, v in vars(mod).items()
+                  if not n.startswith("_") and callable(v) and getattr(v, "__module__", None) == module)
+
+
+#: the LM modules of the moe/ssm/hybrid slice: every public name the
+#: reference defines in ``models.moe`` and ``models.ssm``, and the group
+#: builders and model entry points the slice ports; a reference
+#: ``*_init``/``*_apply`` pair is one module class in the port
+MODEL_NAMES = ([("models.moe", n, n) for n in _defined_in("repro.models.moe")]
+               + [("models.ssm", n, n) for n in _defined_in("repro.models.ssm")]
+               + [("models.transformer", n, p) for n, p in (
+                   ("remat_wrap", "remat_wrap"), ("moe_group_init", "MoEGroup"), ("moe_group_apply", "MoEGroup"),
+                   ("zamba_shared_init", "ZambaShared"), ("zamba_group_init", "ZambaGroup"),
+                   ("zamba_group_apply", "ZambaGroup"))]
+               + [("models.model", n, n) for n in ("build_model", "ModelBundle")])
+
+
+@pytest.mark.parametrize("module,name,port_name", MODEL_NAMES, ids=[f"{m}.{n}" for m, n, _ in MODEL_NAMES])
+def test_model_module_name_is_ported(module, name, port_name):
+    assert callable(getattr(importlib.import_module(f"repro.{module}"), name))
+    obj = getattr(importlib.import_module(f"repro_torch.{module}"), port_name)
+    assert callable(obj) and obj.__module__.startswith("repro_torch.")

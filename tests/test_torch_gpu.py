@@ -129,7 +129,7 @@ FLASH_CASES = [(1, 4, 4, 8, 8), (2, 4, 2, 37, 37), (1, 14, 2, 130, 130), (2, 2, 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 112, 128])
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
 def test_flash_attention_matches_twin(case, d, dtype):
     dev = _cuda()
@@ -166,7 +166,7 @@ def test_flash_attention_non_causal_matches_twin(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("nan_head", [(0, 1), (1, 0)], ids=str)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 112, 128])
 def test_flash_attention_nan_head_stays_in_its_head(d, nan_head):
     """NaN in one (batch, kv head) of K and V reaches only the query heads of
     that group.  The head just before it in memory is clean: a K/V tile that
@@ -192,7 +192,7 @@ def test_flash_attention_nan_head_stays_in_its_head(d, nan_head):
 
 
 #: the line of csrc/flash_attention.cu whose removal leaves P = bf16(p) alone
-SPLIT_P_LO_LINE = "        wgmma_rs<D>(o, p_lo[kk], dv, 1);\n"
+SPLIT_P_LO_LINE = "        wgmma_rs<DP>(o, p_lo[kk], dv, 1);\n"
 
 
 def _bf16_ulp_report(a, b):
@@ -220,7 +220,7 @@ def _cuda_ms(fn, reps=20):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 112, 128])
 def test_flash_attention_split_p_holds_the_bar_a_single_bf16_p_misses(d, tmp_path):
     """Why the bf16 kernel splits P into bf16 hi and lo halves: the same
     source rebuilt without the P_lo product misses the bar at the forward
@@ -838,3 +838,29 @@ def test_server_cli_serves_through_the_kernels_on_the_card(tmp_path):
     assert line.startswith("fft_impl=pallas")
     for kernel in ("rfft_fwd_epilogue", "unpack_sclip", "rfft_fwd_epilogue_rows", "unpack_sclip_rows"):
         assert re.search(rf"'{kernel}': [1-9]", line), line
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "zamba2-7b"])
+def test_serve_cli_serves_a_new_family_at_full_width(arch):
+    """``python -m repro_torch.launch.serve --arch <id> --preset full`` on
+    the card: the published config with random weights, KV compression on,
+    every request served with in-vocabulary tokens."""
+    import os
+    import pathlib
+    import re
+    import subprocess
+    import sys
+
+    _cuda()
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--preset", "full",
+         "--requests", "4", "--max-new-tokens", "4", "--kv-compression"],
+        capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=str(root / "src")), cwd=root,
+        timeout=900)
+    assert out.returncode == 0, out.stderr
+    assert "served 4 requests" in out.stdout
+    tokens = [int(t) for line in out.stdout.splitlines() if line.startswith("uid=")
+              for t in re.findall(r"\d+", line.split(":", 1)[1])]
+    assert len(tokens) == 16

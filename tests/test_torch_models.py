@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_lm_parity as lm
 from repro.configs import ArchConfig as RArchConfig
 from repro.configs import CompressionConfig as RCompressionConfig
 from repro.configs import get_config as r_get_config
@@ -32,7 +33,15 @@ from repro.models import layers as r_layers
 from repro.models import model as r_model
 from repro.models import transformer as r_tf
 from repro_torch import convert
-from repro_torch.configs import ARCH_IDS, ArchConfig, CompressionConfig, get_config, get_smoke_config
+from repro_torch.configs import (
+    ARCH_IDS,
+    PORTED_ARCH_IDS,
+    SHAPES,
+    ArchConfig,
+    CompressionConfig,
+    get_config,
+    get_smoke_config,
+)
 from repro_torch.kernels.flash_attention import ops as t_flash
 from repro_torch.models import layers as t_layers
 from repro_torch.models import model as t_model
@@ -71,9 +80,17 @@ def test_full_width_is_the_published_config():
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != ARCH])
 def test_unported_arch_raises(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    """Every arch but the vlm and audio ones is ported (the dense, moe, ssm
+    and hybrid families): its configs are the reference's, field for field;
+    the other two raise, naming the slice that ports them."""
+    if arch in PORTED_ARCH_IDS:
+        for ours, theirs in ((get_config(arch), r_get_config(arch)),
+                             (get_smoke_config(arch), r_get_smoke_config(arch))):
+            assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        return
+    with pytest.raises(NotImplementedError, match="Queue 1, item 5b"):
         get_config(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 5b"):
         get_smoke_config(arch)
 
 
@@ -82,10 +99,19 @@ def test_unknown_arch_raises():
         get_config("gpt-9")
 
 
+PORTED_FAMILY_ARCH = {"moe": "granite-moe-3b-a800m", "ssm": "mamba2-2.7b", "hybrid": "zamba2-7b"}
+
+
 @pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "vlm", "audio"])
 def test_unported_family_raises(family):
+    """vlm and audio raise; moe, ssm and hybrid build (their parity with the
+    reference is in test_torch_{moe,ssm,hybrid}.py)."""
+    if family in PORTED_FAMILY_ARCH:
+        bundle = t_model.build_model(get_smoke_config(PORTED_FAMILY_ARCH[family]), device="cpu")
+        assert bundle.cfg.family == family
+        return
     cfg = dataclasses.replace(get_smoke_config(ARCH), family=family)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 5b"):
         t_model.build_model(cfg, device="cpu")
 
 
@@ -325,3 +351,42 @@ def test_one_set_of_parameters_runs_under_every_impl():
     losses = [float(t_model.build_model(dataclasses.replace(cfg, attention_impl=i), device="cpu")
                     .loss(params, {"tokens": tokens})) for i in IMPLS]
     np.testing.assert_allclose(losses, losses[0], rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the dense configs beyond qwen2-0.5b (qwen2-7b, granite-3-2b, minitron-4b)
+
+DENSE = ["qwen2-7b", "granite-3-2b", "minitron-4b"]
+
+
+def test_registry_is_the_references():
+    from repro.configs import ARCH_IDS as R_ARCH_IDS
+    from repro.configs import SHAPES as R_SHAPES
+
+    assert ARCH_IDS == R_ARCH_IDS and SHAPES == R_SHAPES
+    assert set(PORTED_ARCH_IDS) == set(ARCH_IDS) - {"llava-next-mistral-7b", "whisper-tiny"}
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_config_loss_matches_reference(arch):
+    lm.check_loss(arch)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_config_prefill_and_decode_match_reference(arch):
+    lm.check_prefill_decode(arch)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_config_params_round_trip(arch):
+    lm.check_round_trip(arch, "float32")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "mamba2-2.7b", "zamba2-7b"])
+def test_serve_cli_serves_the_new_families_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve as t_serve
+
+    t_serve.main(["--arch", arch, "--device", "cpu", "--requests", "3", "--max-new-tokens", "2",
+                  "--kv-compression"])
+    out = capsys.readouterr().out
+    assert "served 3 requests" in out and out.count("uid=") == 3

@@ -317,10 +317,7 @@ def _stacked(make: Callable, *lead: int) -> dict:
 
 def _build_dense(cfg: ArchConfig, device: torch.device) -> ModelBundle:
     def init_cache(batch_size: int, max_len: int) -> dict:
-        shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, max_len, cfg.resolved_head_dim)
-        dtype = dtype_of(cfg.dtype)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
+        return {**_stacked(_kv(cfg, device, batch_size, max_len), cfg.n_layers), "pos": 0}
 
     return _bundle(cfg, device, DenseLM, init_cache)
 

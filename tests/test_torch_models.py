@@ -78,16 +78,18 @@ def test_full_width_is_the_published_config():
     assert get_config(ARCH, n_layers=3).n_layers == 3
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != ARCH])
+@pytest.mark.parametrize("arch", [a for a in PORTED_ARCH_IDS if a != ARCH])
+def test_ported_arch_config_is_the_reference(arch):
+    """The dense, moe, ssm and hybrid archs: full and SMOKE configs are the
+    reference's, field for field."""
+    for ours, theirs in ((get_config(arch), r_get_config(arch)),
+                         (get_smoke_config(arch), r_get_smoke_config(arch))):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in PORTED_ARCH_IDS])
 def test_unported_arch_raises(arch):
-    """Every arch but the vlm and audio ones is ported (the dense, moe, ssm
-    and hybrid families): its configs are the reference's, field for field;
-    the other two raise, naming the slice that ports them."""
-    if arch in PORTED_ARCH_IDS:
-        for ours, theirs in ((get_config(arch), r_get_config(arch)),
-                             (get_smoke_config(arch), r_get_smoke_config(arch))):
-            assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
-        return
+    """The vlm and audio archs raise, naming the slice that ports them."""
     with pytest.raises(NotImplementedError, match="Queue 1, item 5b"):
         get_config(arch)
     with pytest.raises(NotImplementedError, match="Queue 1, item 5b"):
@@ -102,14 +104,16 @@ def test_unknown_arch_raises():
 PORTED_FAMILY_ARCH = {"moe": "granite-moe-3b-a800m", "ssm": "mamba2-2.7b", "hybrid": "zamba2-7b"}
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("family", sorted(PORTED_FAMILY_ARCH))
+def test_ported_family_builds(family):
+    """moe, ssm and hybrid build (their parity with the reference is in
+    test_torch_{moe,ssm,hybrid}.py)."""
+    bundle = t_model.build_model(get_smoke_config(PORTED_FAMILY_ARCH[family]), device="cpu")
+    assert bundle.cfg.family == family
+
+
+@pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_unported_family_raises(family):
-    """vlm and audio raise; moe, ssm and hybrid build (their parity with the
-    reference is in test_torch_{moe,ssm,hybrid}.py)."""
-    if family in PORTED_FAMILY_ARCH:
-        bundle = t_model.build_model(get_smoke_config(PORTED_FAMILY_ARCH[family]), device="cpu")
-        assert bundle.cfg.family == family
-        return
     cfg = dataclasses.replace(get_smoke_config(ARCH), family=family)
     with pytest.raises(NotImplementedError, match="Queue 1, item 5b"):
         t_model.build_model(cfg, device="cpu")

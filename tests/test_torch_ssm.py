@@ -156,6 +156,28 @@ def test_bf16_block_keeps_the_references_types():
                                atol=2 ** -7 * float(np.abs(np.asarray(r_out, dtype=np.float32)).max()))
 
 
+def test_bf16_decode_step_keeps_the_references_types():
+    """A bf16 prefill, then one decode step (the recurrence): the state stays
+    float32 and the conv window bf16 through the step, as in the reference,
+    and each output within two bf16 ulps at the output's largest magnitude
+    of the reference's (the cache path rounds the conv window and the SSD
+    output; at one ulp 2 of the prefill's 1024 values miss by one more)."""
+    rcfg, cfg, p, block = _block(dtype="bfloat16", seed=1)
+    x = np.random.default_rng(9).standard_normal((2, 9, cfg.d_model)).astype(np.float32)
+    cache = t_ssm.init_mamba_cache(2, cfg, torch.bfloat16)
+    r_cache = r_ssm.init_mamba_cache(2, rcfg, jnp.bfloat16)
+    with torch.no_grad():
+        for sl in (slice(0, 8), slice(8, 9)):
+            out, cache = block(torch.from_numpy(x[:, sl]).to(torch.bfloat16), cfg, cache=cache)
+            r_out, r_cache = r_ssm.mamba2_apply(p, jnp.asarray(x[:, sl], dtype=jnp.bfloat16), rcfg, cache=r_cache)
+            assert out.dtype == torch.bfloat16
+            for k in ("conv", "state"):
+                assert str(cache[k].dtype).split(".")[-1] == str(r_cache[k].dtype)
+            want = np.asarray(r_out, dtype=np.float32)
+            np.testing.assert_allclose(out.float().numpy(), want, atol=2 ** -6 * float(np.abs(want).max()))
+    assert cache["state"].dtype == torch.float32 and cache["conv"].dtype == torch.bfloat16
+
+
 def test_finite_grads_under_overflowing_masked_exponent():
     """The reference's regression (``tests/test_ssm.py``): the masked-out
     entries of the decay matrix are positive sums of |dt * A| that overflow

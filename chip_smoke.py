@@ -9,7 +9,7 @@ card at the main path's shapes, then drives ``FFCz.compress`` /
 ``FFCz.decompress`` with ``FFCzConfig(fft_impl="pallas")`` at full size and
 rechecks both stored bounds in float64, drives the qwen2-0.5b dense LM at
 full width (``ModelBundle.loss``, ``ServingEngine``, ``Trainer``), the moe,
-ssm and hybrid LM families at full width (``ModelBundle.loss``,
+ssm, hybrid, vlm and audio LM families at full width (``ModelBundle.loss``,
 ``ServingEngine``), and the FFCz service path (temporal streams,
 ``FFCzService``, session recovery).
 Phases, one JSON line each (or more):
@@ -20,7 +20,8 @@ Phases, one JSON line each (or more):
               within 2 ulp), CUDA-event times of kernel and twin, bound
   4 even      nyx-like-256 (256^3), szlike base: kernels 3 and 4 launch
   5 odd       the same field cropped to 256x256x255: kernels 1 and 2 launch
-  6 pointwise pspec_rel (pointwise Delta) and an E_roi mask (pointwise E)
+  6 pointwise pspec_rel (pointwise Delta) at 64^3 and an E_roi mask
+              (pointwise E) at 128^3 (CUTS)
   7 golden    the three blobs in tests/data decode to their stored outputs
   quantize    repro_torch.kernels.quantize_edits on phase 4's 256^3 spatial
               edits (m = 16), scalar and pointwise bound: bitwise vs its twin
@@ -36,13 +37,18 @@ Phases, one JSON line each (or more):
               3e-5; bfloat16 one ulp at each element's magnitude, 3e-5 floor)
               at d = 64 and 128 with kernel, twin and
               scaled_dot_product_attention times, and again at the families'
-              forward-loss shapes ((4, 24, 8, 2048, 64) and zamba2's (4, 32,
-              32, 2048, 112))
+              forward-loss shapes ((4, 24, 8, 2048, 64), zamba2's (4, 32,
+              32, 2048, 112), llava's (4, 32, 8, 4928, 128) and whisper's
+              (4, 6, 6, 448, 64))
   pencils     (part kernel) the per-pencil kernels vs their twins at the KV
               shapes
   lm_family   qwen2-0.5b (24 layers), granite-moe-3b-a800m (32), mamba2-2.7b
-              (64) and zamba2-7b (81: 13 groups + 3) at full width, random
-              weights, attention_impl "pallas".  float32: the loss of
+              (64), zamba2-7b (81: 13 groups + 3), llava-next-mistral-7b (32
+              layers; 2880 standard-normal patches before each row's 2048
+              tokens, zero patches when served) and whisper-tiny (4 encoder
+              layers over 1500 frames, 4 decoder layers at 448 tokens,
+              prompts of 4-432) at full width, random weights,
+              attention_impl "pallas".  float32: the loss of
               (2, 2048) tokens within 1e-4 of a second correct forward (naive
               attention; mamba2: half the SSD chunk), 4 requests' decode
               logits within max(1e-4, twice the floor between the two
@@ -50,7 +56,8 @@ Phases, one JSON line each (or more):
               missed by a decode step whose cache has its SSM states (or,
               without any, its v) zeroed.  bf16: the forward loss of 4x2048
               tokens (flash launches: one a layer, one a group for zamba2's
-              shared block, none for mamba2) within 1e-3 of the second
+              shared block, one a decoder layer for whisper, none for
+              mamba2) within 1e-3 of the second
               forward, a profile (idle share), ServingEngine on 8 requests
               with decode logits within 2e-2 of the floor (moe at a capacity
               where no pair drops, then at the default for tokens/s), and
@@ -68,7 +75,7 @@ Phases, one JSON line each (or more):
               (kernels 3 and 4 per pencil) and "xla", and one correct call
               with block 1023 (kernels 1 and 2 per pencil): every pencil's
               bounds rechecked in float64 on the host
-  train       Trainer on qwen2-0.5b at full width and depth (bf16 blocks,
+  train       Trainer on qwen2-0.5b at full width, 12 of 24 layers (CUTS; bf16 blocks,
               remat "dots", 4x2048 tokens a step) with FFCz gradient
               compression (grad_Delta_rel 5e-5: at the default 1e-2 the
               correction never acts), 4 steps; then raw checkpoints every 2
@@ -76,7 +83,7 @@ Phases, one JSON line each (or more):
               resumes at step 2 and ends at the uninterrupted run's loss
               (rtol 1e-4): step seconds, tokens/s, compress seconds, losses,
               peak device memory
-  grad_pallas one step's gradients (494 M values) through compress_gradients
+  grad_pallas one step's gradients (315 M values) through compress_gradients
               with the pallas engine (kernels 3 and 4 per pencil) and the
               xla engine, every pencil rechecked in float64 on the host
   (both)      grad_pallas and checkpoint also replay the first call of
@@ -140,18 +147,26 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+STARTED = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor FP32 FLOP/s
 # and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
-# phase 6 runs at 128^3, not the 256^3 of phases 4-5: the pspec bound makes
-# every frequency component an edit (~8.5M at 256^3), and the host Huffman
-# coder (a byte-identical copy of the reference's) would not finish in the
+# qwen2-0.5b layers of phase train (CUTS)
+TRAIN_LAYERS = 12
+# phase 6 runs below the 256^3 of phases 4-5: the pspec bound makes every
+# frequency component an edit (~8.5M at 256^3), and the host Huffman coder
+# (a byte-identical copy of the reference's) would not finish in the
 # smoke's time limit
-CUTS = ["phase 6 (pspec_rel, E_roi) at 128^3 instead of 256^3: host Huffman coding of the "
-        "dense pspec edit stream is the limit",
+CUTS = ["phase 6's pspec_rel case at 64^3 and its E_roi case at 128^3, instead of 256^3: host Huffman "
+        "coding of the dense pspec edit stream is the limit (at 128^3 the pspec case took 103 s of the "
+        "script's 1200 on an NVIDIA H100 80GB HBM3 machine at 700 W, once the vlm and audio families were in)",
+        f"phase train (and the gradients of phase grad_pallas) at {TRAIN_LAYERS} of 24 qwen2-0.5b layers, every "
+        "width kept (a cut for time): at full depth the phase took 101 s, and with the vlm and audio families "
+        "the script reached 1184 s of its 1200 on an NVIDIA H100 80GB HBM3 machine at 700 W (host stages "
+        "spread ~10 % between calls)",
         "phase checkpoint at 2 of 24 layers, every width kept (a cut for time): the base codec, float64 "
         "polish and zlib run on the host, the tied embedding is in the state three times (params, m, v), "
         "and the 2-layer state (0.47 G values to compress) takes about 250 s to save on an H100 machine's "
@@ -172,7 +187,8 @@ class SmokeFailure(Exception):
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "elapsed_s": time.perf_counter() - STARTED}), flush=True)
 
 
 def require(cond: bool, what: str) -> None:
@@ -354,8 +370,8 @@ def phase_kernels(dev):
     return records
 
 
-def reset_launches():
-    """Set every kernel's launch count to 0; returns a reader of the counts."""
+def launch_counters():
+    """Every kernel wrapper's ``launches`` dict."""
     from repro_torch.kernels.block_transform import ops as bt_ops
     from repro_torch.kernels.fcube import ops as fcube_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -363,8 +379,25 @@ def reset_launches():
     from repro_torch.kernels.rfft import ops as rfft_ops
     from repro_torch.kernels.scube import ops as scube_ops
 
-    all_counters = (scube_ops.launches, fcube_ops.launches, rfft_ops.launches, flash_ops.launches,
-                    quantize_ops.launches, bt_ops.launches)
+    return (scube_ops.launches, fcube_ops.launches, rfft_ops.launches, flash_ops.launches,
+            quantize_ops.launches, bt_ops.launches)
+
+
+def without_counting(fn):
+    """Run ``fn``, then put every launch count back as it was before: its
+    launches (a replay against the twins) are not the path's."""
+    counters = launch_counters()
+    saved = [dict(c) for c in counters]
+    try:
+        return fn()
+    finally:
+        for c, kept in zip(counters, saved):
+            c.update(kept)
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0; returns a reader of the counts."""
+    all_counters = launch_counters()
     for counters in all_counters:
         for k in counters:
             counters[k] = 0
@@ -508,6 +541,7 @@ def phase_flash(dev, heads=(4, 14, 2), lengths=FLASH_CASES):
     emit("lm", part="kernel", kernel="flash_attention", cases=cases)
     main = cases[0]
     d128 = next((c for c in cases if c["dtype"] == "bfloat16" and c["q"][-1] == 128), None)
+    d128_f32 = next((c for c in cases if c["dtype"] == "float32" and c["q"][-1] == 128), None)
     f32 = cases[1]  # the main case's float32 twin
     return {
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -516,7 +550,9 @@ def phase_flash(dev, heads=(4, 14, 2), lengths=FLASH_CASES):
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "ms_d128": d128 and d128["ms"], "library_ms_d128": d128 and d128["library_ms"],
-        "ms_float32": f32["ms"], "bound_ms_float32": f32["bound_ms"],
+        "ms_float32": f32["ms"], "bound_ms_float32": f32["bound_ms"], "library_ms_float32": f32["library_ms"],
+        "ms_d128_float32": d128_f32 and d128_f32["ms"], "bound_ms_d128_float32": d128_f32 and d128_f32["bound_ms"],
+        "library_ms_d128_float32": d128_f32 and d128_f32["library_ms"],
     }
 
 
@@ -550,14 +586,15 @@ def device_profile(fn, top=6):
 def profile_lm(bundle, params, batch, phase="lm", **labels):
     """Where the device time goes: torch.profiler over one forward loss and
     over 3 decode steps after a 380-token prefill of the batch's rows (4 at
-    full size), after the counted run.  Returns the forward's profile."""
+    full size; a vlm's patches first, an encoder-decoder's frames encoded),
+    after the counted run.  Returns the forward's profile."""
     import torch
 
     with torch.no_grad():
         forward = device_profile(lambda: float(bundle.loss(params, batch)))
     tokens = batch["tokens"][:, :380]
-    cache = bundle.init_cache(tokens.shape[0], tokens.shape[1] + 3)
-    _, cache = bundle.prefill(params, {"tokens": tokens}, cache)
+    cache = bundle.init_cache(tokens.shape[0], vision_entries(bundle.cfg) + tokens.shape[1] + 3)
+    _, cache = bundle.prefill(params, {**batch, "tokens": tokens}, cache)
 
     def decode3():
         nonlocal cache
@@ -569,25 +606,26 @@ def profile_lm(bundle, params, batch, phase="lm", **labels):
     return forward
 
 
-def serve_and_check(cfg, params, requests, dev, check=True, engine=None):
-    """Serve ``requests`` (16 new tokens each, 4 per batch) on one engine and,
+def serve_and_check(cfg, params, requests, dev, check=True, engine=None, after_compress=None, max_batch=4):
+    """Serve ``requests`` (16 new tokens each, ``max_batch`` a batch) on one engine and,
     with ``check``, hold the first request's last decode logits against
     cache-less forwards of its ``prefix``, through ``cfg`` (``want``,
     ``diff``) and through :func:`second_forward` (``floor``: how far two
     correct forwards are apart).  ``engine`` replaces the serving engine's default
-    correction engine in KV compression.  Prefill, KV compression and decode
-    are timed apart."""
+    correction engine in KV compression, and ``after_compress`` (checks of
+    a batch's compression) runs after each compression, outside the serving
+    time.  Prefill, KV compression and decode are timed apart."""
     import torch
 
     from repro_torch.models.model import _logits
     from repro_torch.serving import engine as serving_engine
     from repro_torch.serving.engine import ServeConfig, ServingEngine
 
-    eng = ServingEngine(cfg, ServeConfig(max_batch=4, max_len=1024), params=params, device=dev)
+    eng = ServingEngine(cfg, ServeConfig(max_batch=max_batch, max_len=1024), params=params, device=dev)
     for prompt in requests:
         eng.submit(prompt, max_new_tokens=16)
     first = eng._make_batch(eng.queue[: eng.serve.max_batch])["tokens"][0]
-    seconds = {"prefill": 0.0, "decode": 0.0, "compress": 0.0}
+    seconds = {"prefill": 0.0, "decode": 0.0, "compress": 0.0, "after_compress": 0.0}
     decode_logits = []
 
     def timed(name, fn):
@@ -604,8 +642,18 @@ def serve_and_check(cfg, params, requests, dev, check=True, engine=None):
 
     eng._prefill, eng._decode = timed("prefill", eng._prefill), timed("decode", eng._decode)
     compress = serving_engine.compress_cache
-    serving_engine.compress_cache = timed("compress", compress if engine is None else (
+    timed_compress = timed("compress", compress if engine is None else (
         lambda cache, comp, **kw: compress(cache, comp, **{**kw, "engine": engine})))
+
+    def compress_then_check(*args, **kwargs):
+        out = timed_compress(*args, **kwargs)
+        if after_compress is not None:
+            t = time.perf_counter()
+            after_compress()
+            seconds["after_compress"] += time.perf_counter() - t
+        return out
+
+    serving_engine.compress_cache = compress_then_check
     t0 = time.perf_counter()
     done = []
     try:
@@ -613,19 +661,20 @@ def serve_and_check(cfg, params, requests, dev, check=True, engine=None):
             done += eng.step()
     finally:
         serving_engine.compress_cache = compress
-    serve_s = time.perf_counter() - t0
+    serve_s = time.perf_counter() - t0 - seconds["after_compress"]
     require(len(done) == len(requests) and all(len(r["tokens"]) == 16 for r in done),
             "serve: wrong completions")
     out = {"done": done, "tokens": sum(len(r["tokens"]) for r in done), "seconds": serve_s,
            "prefill_seconds": seconds["prefill"], "decode_seconds": seconds["decode"],
-           "compress_seconds": seconds["compress"]}
+           "compress_seconds": seconds["compress"], "after_compress_seconds": seconds["after_compress"]}
     if not check:
         return out
     prefix = torch.cat([first, torch.tensor(done[0]["tokens"][:15], device=dev)])[None]
+    stubs = stub_inputs(cfg, 1, dev)  # the engine's zero patches or frames
     with torch.no_grad():
-        h, _ = params(prefix, cfg)
+        h, _ = params(prefix, cfg, **stubs)
         want = _logits(params, h[:, -1:], cfg)[0, -1].float()
-        h, _ = params(prefix, second_forward(cfg))
+        h, _ = params(prefix, second_forward(cfg), **stubs)
         other = _logits(params, h[:, -1:], cfg)[0, -1].float()
     return {**out, "prefix": prefix, "want": want,
             "diff": float(torch.max(torch.abs(decode_logits[-1].float() - want))),
@@ -847,19 +896,29 @@ def recheck_pencils(errs, Es, Ds, corrected, block):
     + tau — the loop's float32 convergence test plus tau = 5 * 2^-24 *
     log2(N) * sqrt(N) * ||pencil||_2, a bound on the float32 FFT's rounding
     (Higham, Accuracy and Stability of Numerical Algorithms, Thm 24.2).
-    Returns (worst |x| / E, worst spectrum / Delta)."""
+    The tensors are rechecked in the port's host threads (numpy releases
+    the interpreter lock).  Returns (worst |x| / E, worst spectrum / Delta)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
 
-    worst_s = worst_f = 0.0
-    for err, E, D, c in zip(errs, Es, Ds, corrected):
+    from repro_torch import host
+
+    def one(item):
+        E, D, c = item
         E, D = float(E), float(D)
         x = c.detach().cpu().numpy().astype(np.float64).reshape(-1)
-        worst_s = max(worst_s, float(np.abs(x).max()) / E)
-        require(float(np.abs(x).max()) <= E, f"pencils: a corrected error exceeds E={E}")
-        mag, tau = pencil_spectra(x, block)
-        if mag.size:
-            worst_f = max(worst_f, float((mag / D).max()))
-        require(bool(np.all(mag <= D * (1 + 1e-5) + tau)), f"pencils: a pencil's spectrum exceeds Delta={D}")
+        peak = float(np.abs(x).max())
+        mag, tau = pencil_spectra(x, block, threads=1)
+        worst = float((mag / D).max()) if mag.size else 0.0
+        return E, D, peak, worst, bool(np.all(mag <= D * (1 + 1e-5) + tau))
+
+    worst_s = worst_f = 0.0
+    with ThreadPoolExecutor(host.THREADS) as pool:
+        for E, D, peak, worst, within in pool.map(one, zip(Es, Ds, corrected)):
+            worst_s, worst_f = max(worst_s, peak / E), max(worst_f, worst)
+            require(peak <= E, f"pencils: a corrected error exceeds E={E}")
+            require(within, f"pencils: a pencil's spectrum exceeds Delta={D}")
     return worst_s, worst_f
 
 
@@ -901,11 +960,11 @@ def recheck_calls(path, calls):
     return out
 
 
-def pencil_spectra(x, block):
+def pencil_spectra(x, block, threads=None):
     """For each full ``block``-pencil of the flat float64 ``x``: the largest
     |Re| or |Im| of its rfft, and tau = 5 * 2^-24 * log2(N) * sqrt(N) *
-    ||pencil||_2.  Rows are split among the port's host threads (numpy's
-    FFTs release the interpreter lock)."""
+    ||pencil||_2.  Rows are split among ``threads`` host threads (default
+    the port's; numpy's FFTs release the interpreter lock)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -919,9 +978,12 @@ def pencil_spectra(x, block):
         mag = np.maximum(np.abs(spec.real), np.abs(spec.imag)).max(axis=1)
         return mag, 5 * 2.0**-24 * np.log2(block) * np.sqrt(block) * np.sqrt((rows * rows).sum(axis=1))
 
-    chunks = np.array_split(full, max(1, min(host.THREADS, len(full) // 256)))
-    with ThreadPoolExecutor(len(chunks)) as pool:
-        parts = list(pool.map(part, chunks))
+    chunks = np.array_split(full, max(1, min(threads or host.THREADS, len(full) // 256)))
+    if len(chunks) == 1:
+        parts = [part(chunks[0])]
+    else:
+        with ThreadPoolExecutor(len(chunks)) as pool:
+            parts = list(pool.map(part, chunks))
     return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
 
 
@@ -1002,7 +1064,16 @@ def phase_pencils(dev, records, cfg, params, tokens=(4, 2048), block=1024, kv_De
 
 # the LM families at full width, qwen2-0.5b (dense) first: phase pencils
 # compresses the cache its params give
-FAMILIES = ("qwen2-0.5b", "granite-moe-3b-a800m", "mamba2-2.7b", "zamba2-7b")
+FAMILIES = ("qwen2-0.5b", "granite-moe-3b-a800m", "mamba2-2.7b", "zamba2-7b", "llava-next-mistral-7b",
+            "whisper-tiny")
+# phase_lm_family's (tokens, prompts) where they are not (4, 2048) and (4,
+# 600): whisper's decoder context is 448 tokens (16 of them served)
+LM_SHAPES = {"whisper-tiny": ((4, 448), (4, 432))}
+# rows a batch of the KV-compression run where not 4: a batch of 4 llava
+# rows is ~0.9 G KV values (2880 vision entries a row), and the batched
+# loop's temporaries (~15-20 copies of them) with the kernels' captured
+# first calls do not fit an 80 GB card beside the 15 GB model
+KV_SERVE_BATCH = {"llava-next-mistral-7b": 2}
 # arch: (layers, gates).  In bf16 the random-weight mamba2 and zamba2
 # stacks carry one rounding, through the layers, into logit differences
 # that grow with depth to the logits' own order; at full depth their served
@@ -1012,7 +1083,10 @@ FAMILIES = ("qwen2-0.5b", "granite-moe-3b-a800m", "mamba2-2.7b", "zamba2-7b")
 # enough that the floor is a fraction of the logits (lm_check_depth)
 CHECK_DEPTH = {"mamba2-2.7b": (48, ("decode",)), "zamba2-7b": (12, ("loss", "decode"))}
 # the flash kernel at the families' attention shapes: (label, (b, hq, hkv), sq, sk, head dim)
-FAMILY_FLASH_CASES = (("granite_moe", (4, 24, 8), 2048, 2048, 64), ("zamba2_d112", (4, 32, 32), 2048, 2048, 112))
+# (llava: 2880 patches + 2048 tokens, 38.5 tiles of 128 rows; whisper's
+# decoder at its 448-token context, 3.5 tiles)
+FAMILY_FLASH_CASES = (("granite_moe", (4, 24, 8), 2048, 2048, 64), ("zamba2_d112", (4, 32, 32), 2048, 2048, 112),
+                      ("llava", (4, 32, 8), 4928, 4928, 128), ("whisper", (4, 6, 6), 448, 448, 64))
 
 
 def phase_flash_families(dev, record, cases=FAMILY_FLASH_CASES):
@@ -1024,13 +1098,15 @@ def phase_flash_families(dev, record, cases=FAMILY_FLASH_CASES):
         r = phase_flash(dev, heads=heads, lengths=((label, sq, sk, d),))
         record["max_abs_err"] = max(record["max_abs_err"], r["max_abs_err"])
         record.setdefault("by_shape", {})[label] = {k: r[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_float32", "bound_ms_float32")}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_float32", "bound_ms_float32",
+            "library_ms_float32")}
 
 
 def family_layers(cfg):
-    """Attention layers on a family's cache-less forward: every layer of a
-    dense or moe model, the shared block once a group of the hybrid, none
-    in mamba2."""
+    """Causal attention layers on a family's cache-less forward (the flash
+    kernel's launches): every layer of a dense, vlm or moe model, the shared
+    block once a group of the hybrid, none in mamba2, every decoder layer of
+    whisper (its encoder and cross-attention are not causal: naive)."""
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_every
     return 0 if cfg.family == "ssm" else cfg.n_layers
@@ -1044,6 +1120,37 @@ def lm_requests(cfg, prompts):
     rng = np.random.default_rng(0)
     lengths = [int(n) for n in rng.integers(prompts[0], prompts[1] + 1, 8)]
     return lengths, [rng.integers(0, cfg.vocab, n) for n in lengths]
+
+
+def vision_entries(cfg):
+    """Cache entries a prefill writes before the prompt's: a vlm's patches."""
+    return cfg.vision_tokens if cfg.family == "vlm" else 0
+
+
+def stub_inputs(cfg, rows, dev, gen=None):
+    """The family's stub frontend output for ``rows`` rows (a vlm's
+    ``patches``, an encoder-decoder's ``frames``): standard normal from
+    ``gen``, as the token pipeline draws them, or without ``gen`` zeros, as
+    the serving engine gives them; nothing for the other families."""
+    import torch
+
+    from repro_torch.models.model import STUB_INPUTS
+
+    key = STUB_INPUTS.get(cfg.family)
+    if key is None:
+        return {}
+    shape = (rows, cfg.vision_tokens, cfg.vision_dim) if cfg.family == "vlm" else (rows, cfg.encoder_seq, cfg.d_model)
+    if gen is None:
+        return {key: torch.zeros(shape, device=dev)}
+    return {key: torch.randn(shape, generator=gen, device=dev)}
+
+
+def lm_batch(cfg, shape, gen, dev):
+    """A scoring batch: ``shape`` random tokens and the family's stubs."""
+    import torch
+
+    tokens = torch.randint(0, cfg.vocab, shape, generator=gen, device=dev)
+    return {"tokens": tokens, **stub_inputs(cfg, shape[0], dev, gen)}
 
 
 def second_forward(cfg):
@@ -1115,8 +1222,8 @@ def cache_fault(cfg, params, served, dev):
     prefix, leaf = served["prefix"], "state" if cfg.family in ("ssm", "hybrid") else "v"
     diffs = []
     for fault in (False, True):
-        cache = bundle.init_cache(1, prefix.shape[1])
-        _, cache = bundle.prefill(params, {"tokens": prefix[:, :-1]}, cache)
+        cache = bundle.init_cache(1, vision_entries(cfg) + prefix.shape[1])
+        _, cache = bundle.prefill(params, {"tokens": prefix[:, :-1], **stub_inputs(cfg, 1, dev)}, cache)
         if fault:
             zero_leaves(cache, leaf)
         logits, _ = bundle.decode(params, prefix[:, -1:], cache)
@@ -1140,7 +1247,7 @@ def lm_float32(dev, cfg, phase, tokens, requests):
     cfg32 = dataclasses.replace(no_drop(cfg), dtype="float32")
     gen = torch.Generator(device=dev).manual_seed(0)
     params = build_model(cfg32, device=dev).init(gen)
-    batch = {"tokens": torch.randint(0, cfg.vocab, (2, tokens[1]), generator=gen, device=dev)}
+    batch = lm_batch(cfg, (2, tokens[1]), gen, dev)
     scored, _ = score(cfg32, params, batch, dev)
     served = serve_and_check(cfg32, params, requests[:4], dev)
     bar = max(1e-4, 2 * served["floor"])
@@ -1178,7 +1285,7 @@ def lm_check_depth(dev, arch, cfg, phase, tokens, requests):
     cut = dataclasses.replace(cfg, n_layers=min(CHECK_DEPTH[arch][0], cfg.n_layers))
     gen = torch.Generator(device=dev).manual_seed(0)
     params = build_model(cut, device=dev).init(gen)
-    batch = {"tokens": torch.randint(0, cut.vocab, tokens, generator=gen, device=dev)}
+    batch = lm_batch(cut, tokens, gen, dev)
     scored, _ = score(cut, params, batch, dev)
     served = serve_and_check(cut, params, requests, dev)
     leaf, clean, faulty = cache_fault(cut, params, served, dev)
@@ -1206,8 +1313,9 @@ def phase_lm_family(dev, records, arch, cfg=None, tokens=(4, 2048), prompts=(4, 
 
       float32  :func:`lm_float32`: the loss, decode and planted-fault gates
       bf16_check_depth  (CHECK_DEPTH's archs) :func:`lm_check_depth`
-      loss   bf16: the forward loss of a ``tokens`` batch, the flash
-             kernel's launches counted (one an attention layer), against
+      loss   bf16: the forward loss of a ``tokens`` batch (with a vlm's
+             patches or an encoder-decoder's frames, standard normal), the
+             flash kernel's launches counted (one a causal attention layer), against
              the second correct forward within 1e-3; then torch.profiler
              over one forward and 3 decode steps (idle share)
       serve  ServingEngine on 8 requests (prompts of ``prompts`` tokens, 16
@@ -1216,9 +1324,12 @@ def phase_lm_family(dev, records, arch, cfg=None, tokens=(4, 2048), prompts=(4, 
              the two correct forwards, for moe at :func:`no_drop`'s
              capacity, then again at the default for tokens/s
       serve_kv_compression  (not ssm) the same requests with KV compression
-             at ``kv_Delta_rel`` through a pallas engine: every correct call's
-             pencils rechecked in float64, kernels 3p/4p counted and their
-             first call at each shape held bitwise against the twins
+             at ``kv_Delta_rel`` through a pallas engine (llava two a batch:
+             KV_SERVE_BATCH; its token differences from the uncompressed run
+             then include another front padding's): after each batch's
+             compression its correct call's pencils rechecked in float64 and
+             kernels 3p/4p's first call at each shape held bitwise against
+             the twins, kernels 3p/4p counted
 
     A bf16 gate that CHECK_DEPTH moves is reported here, not held.  Returns
     the config, the bf16 params and a summary of the family's metrics."""
@@ -1245,10 +1356,11 @@ def phase_lm_family(dev, records, arch, cfg=None, tokens=(4, 2048), prompts=(4, 
     params = build_model(cfg, device=dev).init(gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    batch = {"tokens": torch.randint(0, cfg.vocab, tokens, generator=gen, device=dev)}
+    batch = lm_batch(cfg, tokens, gen, dev)
     scored, counts = score(cfg, params, batch, dev)
     want_launches = family_layers(cfg)
-    emit("lm_family", **phase, part="loss", tokens=list(tokens), init_seconds=init_s,
+    emit("lm_family", **phase, part="loss", tokens=list(tokens),
+         stub_inputs={k: list(v.shape) for k, v in batch.items() if k != "tokens"}, init_seconds=init_s,
          params=sum(p.numel() for p in params.parameters()), **scored,
          other="ssm_chunk // 2" if cfg.family == "ssm" else "naive attention",
          launches={k: v for k, v in counts.items() if v}, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1288,33 +1400,49 @@ def phase_lm_family(dev, records, arch, cfg=None, tokens=(4, 2048), prompts=(4, 
         pallas = CorrectionEngine(backend="batched", fft_impl="pallas", device=dev)
         calls, stop = record_correct(pallas)
         captured, undo = first_calls(*path_wrappers(even=True))
+        batches = []  # each batch's correct calls, sub-tensors and recheck
+
+        def check_batch():
+            # a batch's pencils rechecked and the kernels' first calls held,
+            # then let go, before the next batch: two batches of llava's
+            # cache (~0.9 G values each) with their errors, corrections and
+            # captured kernel inputs do not fit beside the model
+            batches.append((len(calls), sum(len(c[0]) for c in calls), recheck_calls(f"{arch} KV", calls)))
+            calls.clear()
+            without_counting(lambda: hold_at_path_shapes(f"lm_family {cfg.name}", records, captured))
+            captured.clear()
+
+        kv_batch = KV_SERVE_BATCH.get(arch, 4)
         read = reset_launches()
         try:
-            served_kv = serve_and_check(cfg_kv, params, requests, dev, check=False, engine=pallas)
+            served_kv = serve_and_check(cfg_kv, params, requests, dev, check=False, engine=pallas,
+                                        after_compress=check_batch, max_batch=kv_batch)
         finally:
             undo()
             stop()
         counts = read()
-        t0 = time.perf_counter()
-        rechecked = recheck_calls(f"{arch} KV", calls)
-        recheck_s = time.perf_counter() - t0
+        n_calls = sum(b[0] for b in batches)
+        rechecks = [b[2] for b in batches]
+        values = sum(r["values"] for r in rechecks)
         differ = sum(a != b for r0, r1 in zip(served["done"], served_kv["done"])
                      for a, b in zip(r0["tokens"], r1["tokens"]))
-        emit("lm_family", **phase, part="serve_kv_compression", kv_Delta_rel=kv_Delta_rel,
-             correct_calls=len(calls), sub_tensors=sum(len(c[0]) for c in calls), values=rechecked["values"],
-             pencils=rechecked["pencils"], new_tokens=served_kv["tokens"], seconds=served_kv["seconds"],
-             tokens_per_s=served_kv["tokens"] / served_kv["seconds"],
+        emit("lm_family", **phase, part="serve_kv_compression", kv_Delta_rel=kv_Delta_rel, max_batch=kv_batch,
+             correct_calls=n_calls, sub_tensors=sum(b[1] for b in batches), values=values,
+             pencils=sum(r["pencils"] for r in rechecks), new_tokens=served_kv["tokens"],
+             seconds=served_kv["seconds"], tokens_per_s=served_kv["tokens"] / served_kv["seconds"],
              prefill_seconds=served_kv["prefill_seconds"], compress_seconds=served_kv["compress_seconds"],
-             decode_seconds=served_kv["decode_seconds"], worst_abs_over_E=rechecked["worst_abs_over_E"],
-             worst_spectrum_over_Delta=rechecked["worst_spectrum_over_Delta"], recheck_seconds=recheck_s,
+             decode_seconds=served_kv["decode_seconds"],
+             worst_abs_over_E=max(r["worst_abs_over_E"] for r in rechecks),
+             worst_spectrum_over_Delta=max(r["worst_spectrum_over_Delta"] for r in rechecks),
+             recheck_and_hold_seconds=served_kv["after_compress_seconds"],
              tokens_differing_from_uncompressed=differ, launches={k: v for k, v in counts.items() if v})
-        require(len(calls) == 2, f"{arch}: {len(calls)} correct calls, want one a batch (2)")
+        want_calls = -(-len(requests) // kv_batch)
+        require(n_calls == want_calls and len(batches) == want_calls, f"{arch}: {n_calls} correct calls in "
+                f"{len(batches)} compressions, want one a batch ({want_calls})")
         require(all(0 <= t < cfg.vocab for r in served_kv["done"] for t in r["tokens"]),
                 f"{arch}: token out of vocab with KV compression")
         launches_on_path(records, counts, f"serve {cfg.name}")
-        del calls
-        hold_at_path_shapes(f"lm_family {cfg.name}", records, captured)
-        summary.update(compress_seconds=served_kv["compress_seconds"], kv_values=rechecked["values"])
+        summary.update(compress_seconds=served_kv["compress_seconds"], kv_values=values)
     return cfg, params, summary
 
 
@@ -2441,10 +2569,10 @@ def main() -> int:
         records[k]["launches_per_iteration"] = counts[k] / iters
 
     # 6: pointwise bounds — Delta_k grid (pspec) and an E_n grid (ROI mask)
-    x128 = make_field("nyx-like-128")
-    run_case("pointwise", "nyx-like-128 pspec_rel", x128,
+    run_case("pointwise", "nyx-like (64^3) pspec_rel", make_field("nyx-like"),
              FFCzConfig(E_rel=1e-3, Delta_rel=None, pspec_rel=1e-3, fft_impl="pallas", max_iters=3000),
              dev, ("rfft_fwd_epilogue", "unpack_sclip"))
+    x128 = make_field("nyx-like-128")
     mask = np.zeros(x128.shape, dtype=bool)
     mask[32:96, 32:96, 32:96] = True
     run_case("pointwise", "nyx-like-128 E_roi", x128,
@@ -2482,7 +2610,8 @@ def main() -> int:
     # on the dense model's cache
     families = []
     for arch in FAMILIES:
-        cfg_lm, params, summary = phase_lm_family(dev, records, arch)
+        tokens, prompts = LM_SHAPES.get(arch, ((4, 2048), (4, 600)))
+        cfg_lm, params, summary = phase_lm_family(dev, records, arch, tokens=tokens, prompts=prompts)
         if cfg_lm.family == "dense":
             phase_pencils(dev, records, cfg_lm, params)
         del params
@@ -2493,7 +2622,9 @@ def main() -> int:
     # the training path: Trainer with compressed gradients, failure and
     # resume; one step's gradients through the pallas engine; an FFCz
     # checkpoint through the pallas engine, restored by a new Trainer
-    trainer = phase_train(dev)
+    from repro_torch.configs import get_config
+
+    trainer = phase_train(dev, cfg=get_config("qwen2-0.5b", n_layers=TRAIN_LAYERS))
     phase_grad_pallas(dev, records, trainer)
     del trainer
     torch.cuda.empty_cache()

@@ -5,10 +5,9 @@
 ``vocab_padded``, ``n_experts_padded``, ``resolved_head_dim``, ``d_inner``,
 ``ssm_nheads``), so one config means the same thing to both packages.
 ``get_config(name)`` returns an arch's full published config and
-``get_smoke_config(name)`` its reduced same-family config; only the archs
-the port has brought up are known to them (the vlm and audio archs raise
-``NotImplementedError``, naming the slice that ports them).  The field
-configurations of the paper's experiments are in :mod:`.ffcz_fields`.
+``get_smoke_config(name)`` its reduced same-family config, for every arch
+of the reference's registry.  The field configurations of the paper's
+experiments are in :mod:`.ffcz_fields`.
 """
 
 from __future__ import annotations
@@ -30,21 +29,8 @@ ARCH_IDS = (
     "whisper-tiny",
 )
 
-#: the archs whose config module the port has: the dense, moe, ssm and hybrid families
-PORTED_ARCH_IDS = (
-    "qwen2-0.5b",
-    "qwen2-7b",
-    "granite-3-2b",
-    "minitron-4b",
-    "granite-moe-3b-a800m",
-    "llama4-maverick-400b-a17b",
-    "mamba2-2.7b",
-    "zamba2-7b",
-)
-
-#: the families whose models the port has not brought up yet
-UNPORTED_FAMILIES = ("vlm", "audio")
-NEXT_SLICE = "ROADMAP.md Queue 1, item 5b: the vlm and audio slice"
+#: the archs whose config module the port has: all of the reference's
+PORTED_ARCH_IDS = ARCH_IDS
 
 #: (seq_len, global_batch, kind) per shape cell
 SHAPES = {
@@ -156,10 +142,6 @@ _MODULES = {arch: arch.replace("-", "_").replace(".", "_") for arch in ARCH_IDS}
 def _module(name: str):
     if name not in _MODULES:
         raise ValueError(f"unknown arch {name!r}; have {sorted(_MODULES)}")
-    if name not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet ({NEXT_SLICE}); ported: {PORTED_ARCH_IDS}"
-        )
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

@@ -117,25 +117,25 @@ def _tensor(a) -> torch.Tensor:
 
 
 #: subtrees of the reference's LM parameter tree whose leaves carry a leading
-#: stacked axis, one entry a layer or group (``stack_init``): the dense and
-#: ssm ``layers``, the moe and hybrid ``groups``, inside a moe group its
-#: ``dense_blocks`` and inside a hybrid group its ``mamba`` blocks, and the
-#: hybrid's mamba ``tail``
-_STACKED = ("layers", "groups", "dense_blocks", "mamba", "tail")
+#: stacked axis, one entry a layer or group (``stack_init``): the dense, vlm
+#: and ssm ``layers``, the moe and hybrid ``groups``, inside a moe group its
+#: ``dense_blocks`` and inside a hybrid group its ``mamba`` blocks, the
+#: hybrid's mamba ``tail``, and whisper's ``encoder`` and ``decoder``
+_STACKED = ("layers", "groups", "dense_blocks", "mamba", "tail", "encoder", "decoder")
 
 
 def _stack_sizes(cfg) -> dict:
     """The length of each stacked axis of ``cfg``'s parameter tree."""
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family in ("dense", "vlm", "ssm"):
         return {"layers": cfg.n_layers}
     if cfg.family == "moe":
         return {"groups": cfg.n_layers // cfg.moe_every, "dense_blocks": cfg.moe_every - 1}
     if cfg.family == "hybrid":
         n_groups = cfg.n_layers // cfg.attn_every
         return {"groups": n_groups, "mamba": cfg.attn_every, "tail": cfg.n_layers - n_groups * cfg.attn_every}
-    from repro_torch.configs import NEXT_SLICE
-
-    raise NotImplementedError(f"family {cfg.family!r} has no parameter tree in the port yet ({NEXT_SLICE})")
+    if cfg.family == "audio":
+        return {"encoder": cfg.encoder_layers, "decoder": cfg.n_layers}
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def lm_params_from_reference(params_np: dict, cfg) -> dict:
@@ -144,9 +144,11 @@ def lm_params_from_reference(params_np: dict, cfg) -> dict:
     ``params_np`` is the tree ``repro.models.model.build_model(cfg).init``
     returns, with numpy leaves (``jax.tree.map(np.asarray, params)``) or
     torch tensors.  Each stacked subtree (:data:`_STACKED`: ``layers``,
-    ``groups``, a group's ``dense_blocks`` or ``mamba``, ``tail``) is split
+    ``groups``, a group's ``dense_blocks`` or ``mamba``, ``tail``,
+    ``encoder``, ``decoder``) is split
     along its leading axis into one ``<name>.<i>.`` prefix an entry, nested
-    as the stacks nest (``groups.<g>.mamba.<j>.in_proj``).  Values and dtypes
+    as the stacks nest (``groups.<g>.mamba.<j>.in_proj``); the vlm's
+    ``projector`` is not stacked (``projector.w1``).  Values and dtypes
     are kept exactly (the moe experts stay padded to ``n_experts_padded``,
     the router not); a tensor leaf's entries are views of it.
     """

@@ -9,9 +9,10 @@ copy pass (p = 0.5 copy the previous token) so the loss signal is
 learnable.  The draws come from torch's generator, not ``jax.random``'s
 threefry stream, so the two packages' batches differ (as ``DenseLM.init_``
 differs from the reference's init); a parity test feeds both the same
-batch.  Batches are made on the host.  Only token batches are ported (the
-dense, moe, ssm and hybrid families take tokens only): the ``vlm`` and
-``audio`` inputs raise, as ``build_model`` does for them.
+batch.  Batches are made on the host.  The vlm and audio stubs
+(``patches`` of (b, vision_tokens, vision_dim), ``frames`` of (b,
+audio_frames, audio_dim), float32 standard normal) are drawn from the same
+generator after the tokens: the reference's distribution, not its numbers.
 """
 
 from __future__ import annotations
@@ -22,8 +23,6 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.configs import NEXT_SLICE, UNPORTED_FAMILIES
-
 
 @dataclasses.dataclass(frozen=True)
 class TokenPipeline:
@@ -33,15 +32,11 @@ class TokenPipeline:
     seed: int = 0
     n_shards: int = 1
     shard: int = 0
-    # modality stubs (not ported: non-zero raises)
+    # modality stubs
     vision_tokens: int = 0
     vision_dim: int = 0
     audio_frames: int = 0
     audio_dim: int = 0
-
-    def __post_init__(self):
-        if self.vision_tokens or self.audio_frames:
-            raise NotImplementedError(f"vision and audio inputs are not ported yet ({NEXT_SLICE})")
 
     @property
     def shard_batch(self) -> int:
@@ -64,12 +59,22 @@ class TokenPipeline:
         # (a rank below sqrt(vocab)), and the rest copy their predecessor.
         keep = f < 0.5
         tokens = torch.where(keep, tokens, torch.roll(tokens, 1, dims=1))
-        return {"tokens": tokens}
+        out: Dict[str, Any] = {"tokens": tokens}
+        if self.vision_tokens:
+            out["patches"] = torch.randn((self.shard_batch, self.vision_tokens, self.vision_dim), generator=gen)
+        if self.audio_frames:
+            out["frames"] = torch.randn((self.shard_batch, self.audio_frames, self.audio_dim), generator=gen)
+        return out
 
 
 def pipeline_for(cfg, seq_len: int, global_batch: int, seed: int = 0, n_shards: int = 1,
                  shard: int = 0) -> TokenPipeline:
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet ({NEXT_SLICE})")
-    return TokenPipeline(vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch,
-                         seed=seed, n_shards=n_shards, shard=shard)
+    """The pipeline of ``cfg``'s family; a vlm's ``seq_len`` counts its
+    patches, so its batches carry ``seq_len - vision_tokens`` tokens."""
+    kw = dict(vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch, seed=seed, n_shards=n_shards,
+              shard=shard)
+    if cfg.family == "vlm":
+        kw.update(vision_tokens=cfg.vision_tokens, vision_dim=cfg.vision_dim, seq_len=seq_len - cfg.vision_tokens)
+    if cfg.family == "audio":
+        kw.update(audio_frames=cfg.encoder_seq, audio_dim=cfg.d_model)
+    return TokenPipeline(**kw)

@@ -1,11 +1,14 @@
-"""GQA attention with RoPE, a KV cache, and three interchangeable impls.
+"""GQA attention with RoPE, a KV cache, cross-attention over precomputed
+encoder K/V, and three interchangeable impls.
 
   naive      full materialised scores
   xla_flash  blockwise online softmax in plain torch, with the reference's
              block sizes and causal-scheduling trip counts (the reference
              writes it in XLA, not Pallas, so its port is not a kernel)
   pallas     the flash-attention kernel (``kernels/flash_attention``): CUDA
-             on the card, its plain twin on the CPU
+             on the card, its plain twin on the CPU; the kernel is causal
+             only, so a non-causal call (an encoder's, a cross-attention)
+             runs ``naive``, as in the reference
 
 All impls share one set of weights and agree to ~1e-5 in float32.  The port
 runs on one device: the reference's mesh sharding constraints have no
@@ -68,6 +71,17 @@ class Attention(nn.Module):
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.named_parameters(recurse=False))
+
+
+def qkv_slices(params: Mapping[str, torch.Tensor], n_heads: int, n_kv_heads: int, head_dim: int):
+    """(wq, wk, wv) head-axis slices of the fused projection (cross-attention
+    use), each reshaped back to 2-D (d, h*hd)."""
+    w = params["wqkv"]
+    d = w.shape[0]
+    wq = w[:, :n_heads].reshape(d, n_heads * head_dim)
+    wk = w[:, n_heads : n_heads + n_kv_heads].reshape(d, n_kv_heads * head_dim)
+    wv = w[:, n_heads + n_kv_heads :].reshape(d, n_kv_heads * head_dim)
+    return wq, wk, wv
 
 
 def _project_qkv(params: Mapping[str, torch.Tensor], x: torch.Tensor, n_heads: int, n_kv_heads: int):
@@ -189,23 +203,34 @@ def attention_apply(
     rope_theta: float = 1e6,
     positions: Optional[torch.Tensor] = None,
     cache: Optional[dict] = None,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     causal_scheduling: bool = True,
     from_zero: bool = False,
     mesh_axes: tuple = (),
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One self-attention call.  Modes:
+    """One attention call.  Modes:
 
       * scoring/training: cache=None -> full self-attention over x
       * prefill/decode:   cache={"k","v","pos"} -> write x's kv at pos (in
         place), attend over the cache
+      * cross-attention:  cross_kv=(k, v) precomputed from the encoder ->
+        q only, attending over all of (k, v) without a causal mask
 
     Returns (output (b,s,d_model), the cache with pos advanced, or None).
     """
     if mesh_axes:
         raise NotImplementedError("mesh sharding is not ported (ROADMAP.md Queue 1, slice 5)")
-    s = x.shape[1]
+    b, s = x.shape[0], x.shape[1]
     scale = 1.0 / float(head_dim) ** 0.5
     new_cache = None
+    if cross_kv is not None:
+        wq, _, _ = qkv_slices(params, n_heads, n_kv_heads, head_dim)
+        q = (x @ wq).reshape(b, s, n_heads, head_dim).transpose(1, 2)
+        if "bqkv" in params:
+            q = q + params["bqkv"][None, :n_heads, None, :]
+        k, v = cross_kv
+        out = _attend(q, k, v, impl=impl, causal=False, kv_offset=0, scale=scale)
+        return torch.einsum("bhsf,hfd->bsd", out, params["wo"]), None
     q, k, v = _project_qkv(params, x, n_heads, n_kv_heads)
     if cache is not None:
         pos = int(cache["pos"])  # number of valid cache entries

@@ -1,11 +1,14 @@
-"""Common layers: RMSNorm, RoPE, SwiGLU MLP, embeddings, initializers.
+"""Common layers: RMSNorm, RoPE, sinusoidal positions, SwiGLU and GELU
+MLPs, embeddings, initializers.
 
 The reference's pure functions ``f(params, x)`` become small ``nn.Module``s
 whose parameters carry the reference's names (``scale``, ``w_gu``,
-``w_down``), so a reference parameter tree maps onto a ``state_dict`` key
-for key.  The casts are the reference's: RMSNorm and RoPE compute in float32
-and return the input's dtype, the cross-entropy runs in float32.
-Initializers draw from an explicit ``torch.Generator``.
+``w_up``, ``w_down``), so a reference parameter tree maps onto a
+``state_dict`` key for key.  The casts are the reference's: RMSNorm and
+RoPE compute in float32 and return the input's dtype, sinusoidal
+embeddings are float32, the cross-entropy runs in float32.  The GELU is
+``jax.nn.gelu``'s default, the tanh approximation.  Initializers draw from
+an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -82,6 +86,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
+def sinusoidal_embed(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal embeddings of integer ``positions`` (s,) -> (s, d) float32,
+    sin and cos interleaved, computed at run time (decode positions move)."""
+    pos = positions.to(torch.float32)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=positions.device)[None, :]
+    # the float32 power rounded from float64: XLA's is correctly rounded
+    # where torch's float32 pow is one ulp off at some exponents
+    angle = pos / torch.pow(10000.0, (2.0 * i / d).to(torch.float64)).to(torch.float32)
+    return torch.stack([torch.sin(angle), torch.cos(angle)], dim=-1).reshape(positions.shape[0], d)
+
+
+def sinusoidal_positions(seq: int, d: int) -> torch.Tensor:
+    """The table of :func:`sinusoidal_embed` for positions 0..seq-1, made on
+    the host in numpy (float64 angles, float32 out), as the reference's."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / d)
+    out = np.zeros((seq, d), dtype=np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return torch.from_numpy(out)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 
@@ -107,6 +134,34 @@ class SwiGLU(nn.Module):
 def swiglu(w_gu: torch.Tensor, w_down: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     gu = torch.einsum("...d,dcf->...cf", x, w_gu)
     return (F.silu(gu[..., 0, :]) * gu[..., 1, :]) @ w_down
+
+
+class GeluMLP(nn.Module):
+    """``w_up (d, f)`` and ``w_down (f, d)`` around a tanh-approximated GELU
+    (the reference's ``gelu_mlp_init`` / ``gelu_mlp``)."""
+
+    def __init__(self, d: int, f: int, dtype, device=None):
+        super().__init__()
+        self.w_up = nn.Parameter(torch.empty((d, f), dtype=dtype, device=device))
+        self.w_down = nn.Parameter(torch.empty((f, d), dtype=dtype, device=device))
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        p = gelu_mlp_init(gen, *self.w_up.shape, self.w_up.dtype)
+        self.w_up.copy_(p["w_up"])
+        self.w_down.copy_(p["w_down"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gelu_mlp(self.w_up, self.w_down, x)
+
+
+def gelu_mlp_init(gen: torch.Generator, d: int, f: int, dtype) -> dict:
+    return {"w_up": dense_init(gen, d, f, dtype), "w_down": dense_init(gen, f, d, dtype)}
+
+
+def gelu_mlp(w_up: torch.Tensor, w_down: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to approximate=True; torch's default is the exact erf
+    return F.gelu(x @ w_up, approximate="tanh") @ w_down
 
 
 # ---------------------------------------------------------------------------

@@ -10,12 +10,17 @@
   decode(params, tokens, cache)      -> (logits, cache)
   init_cache(batch_size, max_len)    -> cache
 
+A batch is a dict: ``tokens`` (b, s) integers, and for the vlm family
+``patches`` (b, vision_tokens, vision_dim), for audio ``frames`` (b,
+encoder_seq, d_model), both float32 (the stub frontends' outputs).
+
 The reference ``lax.scan``s one block over parameters stacked on a layer
 (or layer-group) axis; here the layers and groups are ``nn.ModuleList``s
 run by a Python loop.  Families: ``dense`` (:class:`DenseLM`), ``moe``
 (:class:`MoELM`, groups of ``moe_every`` layers), ``ssm`` (:class:`SSMLM`,
-mamba2) and ``hybrid`` (:class:`ZambaLM`, zamba2); ``vlm`` and ``audio``
-raise.
+mamba2), ``hybrid`` (:class:`ZambaLM`, zamba2), ``vlm`` (:class:`VLMLM`:
+the dense backbone behind a patch projector, llava) and ``audio``
+(:class:`WhisperLM`: an encoder and a cross-attending decoder, whisper).
 
 Caches keep the reference's leaves, each stacked on its leading layer (and
 group) axes as the reference's scan stacks them, with one Python-int
@@ -32,6 +37,11 @@ group) axes as the reference's scan stacks them, with one Python-int
                                 "state": (n_groups, attn_every, b, h, p, n)}},
            "tail": {"conv", "state"} stacked on the tail's layers (when
                    n_layers % attn_every), "pos"}
+  vlm     as dense; a prefill writes vision_tokens + the prompt's entries
+  audio   {"self": {"k", "v": (n_layers, b, hkv, S, hd), "pos"},
+           "cross": (k, v), each (n_layers, b, hkv, encoder_seq, hd)}
+          (the reference's two subtrees; ``pos`` sits in ``self``, and
+          ``cross`` is the encoder's K/V, replaced at each prefill)
 
 K/V are in ``cfg.dtype``, mamba ``conv`` too, ``state`` in float32.  The
 cache is updated in place and returned with ``pos`` advanced.  ``loss`` is
@@ -52,12 +62,33 @@ from typing import Callable, Mapping, Optional
 import torch
 from torch import nn
 
-from repro_torch.configs import NEXT_SLICE, UNPORTED_FAMILIES, ArchConfig
+from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import init_kv_cache
-from repro_torch.models.layers import RMSNorm, cross_entropy_loss, dense_init, dtype_of, embed_init, rmsnorm
+from repro_torch.models.layers import (
+    RMSNorm,
+    cross_entropy_loss,
+    dense_init,
+    dtype_of,
+    embed_init,
+    gelu_mlp,
+    rmsnorm,
+    sinusoidal_embed,
+)
 from repro_torch.models.ssm import Mamba2, init_mamba_cache
-from repro_torch.models.transformer import DenseBlock, MoEGroup, ZambaGroup, ZambaShared, remat_wrap
+from repro_torch.models.transformer import (
+    DecoderXBlock,
+    DenseBlock,
+    EncoderBlock,
+    MoEGroup,
+    ZambaGroup,
+    ZambaShared,
+    cross_kv_from_encoder,
+    remat_wrap,
+)
+
+#: the batch key of each family's stub frontend output
+STUB_INPUTS = {"vlm": "patches", "audio": "frames"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,12 +105,11 @@ class ModelBundle:
 
 def build_model(cfg: ArchConfig, device=None) -> ModelBundle:
     """The bundle for ``cfg`` on ``device`` (``None`` means ``"cuda"``)."""
-    builders = {"dense": _build_dense, "moe": _build_moe, "ssm": _build_ssm, "hybrid": _build_zamba}
-    if cfg.family in builders:
-        return builders[cfg.family](cfg, resolve_device(device))
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet ({NEXT_SLICE})")
-    raise ValueError(f"unknown family {cfg.family!r}")
+    builders = {"dense": _build_dense, "vlm": _build_dense, "moe": _build_moe, "ssm": _build_ssm,
+                "hybrid": _build_zamba, "audio": _build_whisper}
+    if cfg.family not in builders:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return builders[cfg.family](cfg, resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -92,8 +122,9 @@ class LM(nn.Module):
     ``state_dict`` keys follow the reference's parameter tree: ``embed``,
     ``ln_f.scale``, ``lm_head`` (untied only), then the family's blocks with
     one ``<stack>.<i>.`` prefix per entry of a stacked axis (``layers``,
-    ``groups``, a group's ``dense_blocks`` or ``mamba``, ``tail``).  Head
-    parameters are in ``cfg.param_dtype``, the blocks in ``cfg.dtype``.
+    ``groups``, a group's ``dense_blocks`` or ``mamba``, ``tail``,
+    ``encoder``, ``decoder``).  Head parameters (and the vlm projector)
+    are in ``cfg.param_dtype``, the blocks in ``cfg.dtype``.
     """
 
     def __init__(self, cfg: ArchConfig, device=None):
@@ -142,6 +173,50 @@ class DenseLM(LM):
             c = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"]}
             x, _ = layer(x, cfg, cache=c, from_zero=from_zero)
         return x, {**cache, "pos": cache["pos"] + x.shape[1]}
+
+
+class Projector(nn.Module):
+    """The vlm's patch projector: ``w1 (vision_dim, d)``, ``w2 (d, d)``."""
+
+    def __init__(self, vision_dim: int, d: int, dtype, device=None):
+        super().__init__()
+        self.w1 = nn.Parameter(torch.empty((vision_dim, d), dtype=dtype, device=device))
+        self.w2 = nn.Parameter(torch.empty((d, d), dtype=dtype, device=device))
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        self.w1.copy_(dense_init(gen, *self.w1.shape, self.w1.dtype))
+        self.w2.copy_(dense_init(gen, *self.w2.shape, self.w2.dtype))
+
+    def forward(self, patches: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """``gelu(patches @ w1) @ w2``, the patches rounded to ``dtype`` first
+        and the products in the promoted type, as the reference's
+        (float32 with float32 weights); the result is cast to ``dtype``."""
+        ct = torch.promote_types(dtype, self.w1.dtype)
+        pe = patches.to(dtype).to(ct)
+        return gelu_mlp(self.w1.to(ct), self.w2.to(ct), pe).to(dtype)
+
+
+class VLMLM(DenseLM):
+    """A :class:`DenseLM` with a ``projector`` (:class:`Projector`): the
+    projected patches go before the token embeddings."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__(cfg, device)
+        self.projector = Projector(cfg.vision_dim, cfg.d_model, dtype_of(cfg.param_dtype), device)
+
+    def init_blocks_(self, gen, cfg):
+        super().init_blocks_(gen, cfg)
+        self.projector.init_(gen)
+
+    def forward(self, tokens: torch.Tensor, cfg: ArchConfig, cache: Optional[dict] = None,
+                from_zero: bool = False, patches: Optional[torch.Tensor] = None):
+        """As :meth:`LM.forward`; with ``patches`` (scoring and prefill) the
+        sequence is the projected patches, then the tokens."""
+        x = _embed(self, tokens, cfg)
+        if patches is not None:
+            x = torch.cat([self.projector(patches, x.dtype), x], dim=1)
+        return self.backbone(x, cfg, cache, from_zero)
 
 
 class MoELM(LM):
@@ -223,6 +298,69 @@ class ZambaLM(LM):
         return x, {**cache, "pos": cache["pos"] + x.shape[1]}
 
 
+class WhisperLM(LM):
+    """``encoder`` (``encoder_layers`` :class:`EncoderBlock`) and ``decoder``
+    (``n_layers`` :class:`DecoderXBlock`) around the shared head (whisper
+    ties it to the embedding)."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__(cfg, device)
+        self.encoder = nn.ModuleList(EncoderBlock(cfg, device) for _ in range(cfg.encoder_layers))
+        self.decoder = nn.ModuleList(DecoderXBlock(cfg, device) for _ in range(cfg.n_layers))
+
+    def init_blocks_(self, gen, cfg):
+        for block in (*self.encoder, *self.decoder):
+            block.init_(gen)
+
+    def encode(self, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+        """The encoder's output (b, s_enc, d) from the frames plus their
+        sinusoidal positions."""
+        x = frames.to(dtype_of(cfg.dtype))
+        x = x + sinusoidal_embed(torch.arange(x.shape[1], device=x.device), cfg.d_model).to(x.dtype)[None]
+        for block in self.encoder:
+            x = remat_wrap(block, cfg.remat)(x, cfg)
+        return x
+
+    def cross_kvs(self, enc_out: torch.Tensor, cfg: ArchConfig):
+        """Every decoder layer's cross-attention (k, v), stacked on a
+        leading layer axis."""
+        kvs = [cross_kv_from_encoder(block, enc_out, cfg) for block in self.decoder]
+        return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
+
+    def dec_embed(self, tokens: torch.Tensor, pos0: int, cfg: ArchConfig) -> torch.Tensor:
+        x = _embed(self, tokens, cfg)
+        positions = pos0 + torch.arange(x.shape[1], device=x.device)
+        return x + sinusoidal_embed(positions, cfg.d_model).to(x.dtype)[None]
+
+    def run_decoder(self, x, kvs, cfg: ArchConfig, cache: Optional[dict] = None, from_zero: bool = False):
+        """The decoder over ``x`` against the stacked cross (k, v); ``cache``
+        is the ``self`` subtree, updated in place and returned with ``pos``
+        advanced."""
+        for i, block in enumerate(self.decoder):
+            kv = (kvs[0][i], kvs[1][i])
+            if cache is None:
+                x, _ = remat_wrap(block, cfg.remat)(x, kv, cfg)
+            else:
+                c = {"k": cache["k"][i], "v": cache["v"][i], "pos": cache["pos"]}
+                x, _ = block(x, kv, cfg, cache=c, from_zero=from_zero)
+        if cache is None:
+            return x, None
+        return x, {**cache, "pos": cache["pos"] + x.shape[1]}
+
+    def forward(self, tokens: torch.Tensor, cfg: ArchConfig, cache: Optional[dict] = None,
+                from_zero: bool = False, frames: Optional[torch.Tensor] = None):
+        """Scoring (no cache) and prefill (``from_zero``) encode ``frames``;
+        a prefill puts their K/V in the cache's ``cross``, and decode steps
+        read them from there."""
+        if cache is None or from_zero:
+            kvs, pos0 = self.cross_kvs(self.encode(frames, cfg), cfg), 0
+        else:
+            kvs, pos0 = cache["cross"], cache["self"]["pos"]
+        x = self.dec_embed(tokens, pos0, cfg)
+        x, self_cache = self.run_decoder(x, kvs, cfg, None if cache is None else cache["self"], from_zero)
+        return x, None if cache is None else {"self": self_cache, "cross": kvs}
+
+
 def _mamba_stack(layers, x, cfg, cache):
     """Residual mamba2 blocks; ``cache`` (``conv``/``state`` stacked on the
     layer axis) is updated in place and returned."""
@@ -275,6 +413,11 @@ def _bundle(cfg: ArchConfig, device: torch.device, lm_class, init_cache: Callabl
     def tokens_of(batch) -> torch.Tensor:
         return torch.as_tensor(batch["tokens"], device=device).to(torch.int64)
 
+    def stubs_of(batch) -> dict:
+        """The family's stub input (``patches`` or ``frames``) as a tensor."""
+        key = STUB_INPUTS.get(cfg.family)
+        return {key: torch.as_tensor(batch[key], device=device)} if key else {}
+
     def init(gen: torch.Generator) -> LM:
         if gen.device.type != device.type:
             raise ValueError(f"generator is on {gen.device}, the model on {device}")
@@ -290,12 +433,18 @@ def _bundle(cfg: ArchConfig, device: torch.device, lm_class, init_cache: Callabl
 
     def loss(params: LM, batch) -> torch.Tensor:
         tokens = tokens_of(batch)
-        h, _ = params(tokens, cfg)
+        h, _ = params(tokens, cfg, **stubs_of(batch))
+        if cfg.family == "vlm":
+            # the logits that predict the tokens: from the last patch on (the
+            # reference slices the full logits; a head over the rows it keeps
+            # gives the same values)
+            v = cfg.vision_tokens
+            return cross_entropy_loss(_logits(params, h[:, v - 1 : -1], cfg), tokens)
         return _lm_loss(_logits(params, h, cfg), tokens)
 
     @torch.no_grad()
     def prefill(params: LM, batch, cache: dict):
-        h, cache = params(tokens_of(batch), cfg, cache=cache, from_zero=True)
+        h, cache = params(tokens_of(batch), cfg, cache=cache, from_zero=True, **stubs_of(batch))
         return _logits(params, h[:, -1:], cfg), cache
 
     @torch.no_grad()
@@ -316,10 +465,11 @@ def _stacked(make: Callable, *lead: int) -> dict:
 
 
 def _build_dense(cfg: ArchConfig, device: torch.device) -> ModelBundle:
+    """The dense family, and the vlm (the dense backbone behind its projector)."""
     def init_cache(batch_size: int, max_len: int) -> dict:
         return {**_stacked(_kv(cfg, device, batch_size, max_len), cfg.n_layers), "pos": 0}
 
-    return _bundle(cfg, device, DenseLM, init_cache)
+    return _bundle(cfg, device, VLMLM if cfg.family == "vlm" else DenseLM, init_cache)
 
 
 def _kv(cfg: ArchConfig, device, batch_size: int, max_len: int) -> Callable:
@@ -360,3 +510,13 @@ def _build_zamba(cfg: ArchConfig, device: torch.device) -> ModelBundle:
         return c
 
     return _bundle(cfg, device, ZambaLM, init_cache)
+
+
+def _build_whisper(cfg: ArchConfig, device: torch.device) -> ModelBundle:
+    def init_cache(batch_size: int, max_len: int) -> dict:
+        shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, cfg.encoder_seq, cfg.resolved_head_dim)
+        cross = tuple(torch.zeros(shape, dtype=dtype_of(cfg.dtype), device=device) for _ in range(2))
+        return {"self": {**_stacked(_kv(cfg, device, batch_size, max_len), cfg.n_layers), "pos": 0},
+                "cross": cross}
+
+    return _bundle(cfg, device, WhisperLM, init_cache)

@@ -1,5 +1,6 @@
 """Block compositions: the dense decoder block (qwen2 / granite / minitron /
-mistral backbone), the MoE layer group and the Zamba2 hybrid group.
+mistral backbone), the MoE layer group, the Zamba2 hybrid group, and
+Whisper's encoder block and cross-attending decoder block.
 
 The reference stacks each layer's (or layer group's) parameters on a
 leading axis and ``lax.scan``s the block over them; the port keeps one
@@ -8,7 +9,9 @@ and a group's inner stack (the MoE group's dense blocks, the hybrid group's
 mamba blocks) is a ``ModuleList`` too.  The reference's ``*_init``/``*_apply``
 pairs are modules here (``init_`` draws from a generator, ``forward`` is
 ``apply``): ``moe_group_*`` is :class:`MoEGroup`, ``zamba_shared_init``
-:class:`ZambaShared`, ``zamba_group_*`` :class:`ZambaGroup`.  Caches are the
+:class:`ZambaShared`, ``zamba_group_*`` :class:`ZambaGroup`,
+``encoder_block_*`` :class:`EncoderBlock`, ``decoder_xblock_*``
+:class:`DecoderXBlock`.  Caches are the
 model's, sliced per layer by the caller (``models/model.py`` documents the
 layouts).  ``remat_wrap`` applies ``cfg.remat`` to a block under autograd,
 with the reference's names:
@@ -28,8 +31,8 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs import ArchConfig
-from repro_torch.models.attention import Attention, attention_apply
-from repro_torch.models.layers import RMSNorm, SwiGLU, dtype_of, normal, rmsnorm
+from repro_torch.models.attention import Attention, attention_apply, qkv_slices
+from repro_torch.models.layers import GeluMLP, RMSNorm, SwiGLU, dtype_of, normal, rmsnorm
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.ssm import Mamba2
 
@@ -243,3 +246,111 @@ class ZambaGroup(nn.Module):
                 for k, t in nc.items():
                     caches["mamba"][k][i].copy_(t)
         return x, caches
+
+
+# ---------------------------------------------------------------------------
+# Whisper blocks: parameters in cfg.dtype, attention without QKV bias
+
+
+def _whisper_attention(cfg: ArchConfig, device) -> Attention:
+    return Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, False,
+                     dtype_of(cfg.dtype), device)
+
+
+class EncoderBlock(nn.Module):
+    """Pre-norm bidirectional self-attention + GELU MLP with residuals.  Its
+    attention is always ``naive`` (the reference's encoder never runs the
+    flash kernel, which is causal only) and takes no positions (the
+    encoder's sinusoidal positions are added to its input)."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        dtype = dtype_of(cfg.dtype)
+        self.ln_attn = RMSNorm(cfg.d_model, dtype, device)
+        self.attn = _whisper_attention(cfg, device)
+        self.ln_mlp = RMSNorm(cfg.d_model, dtype, device)
+        self.mlp = GeluMLP(cfg.d_model, cfg.d_ff, dtype, device)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        self.attn.init_(gen)
+        self.mlp.init_(gen)
+
+    def forward(self, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+        h, _ = attention_apply(
+            self.attn.params(),
+            self.ln_attn(x, cfg.norm_eps),
+            n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim,
+            impl="naive",
+            causal=False,
+            pos_type="none",
+        )
+        x = x + h
+        return x + self.mlp(self.ln_mlp(x, cfg.norm_eps))
+
+
+class DecoderXBlock(nn.Module):
+    """Pre-norm causal self-attention (``cfg.attention_impl``, with a cache
+    when serving), cross-attention over the encoder's precomputed K/V
+    (``naive``), then a GELU MLP, each with a residual."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        dtype = dtype_of(cfg.dtype)
+        self.ln_self = RMSNorm(cfg.d_model, dtype, device)
+        self.self_attn = _whisper_attention(cfg, device)
+        self.ln_cross = RMSNorm(cfg.d_model, dtype, device)
+        self.cross_attn = _whisper_attention(cfg, device)
+        self.ln_mlp = RMSNorm(cfg.d_model, dtype, device)
+        self.mlp = GeluMLP(cfg.d_model, cfg.d_ff, dtype, device)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        self.self_attn.init_(gen)
+        self.cross_attn.init_(gen)
+        self.mlp.init_(gen)
+
+    def forward(self, x: torch.Tensor, enc_kv, cfg: ArchConfig, cache: Optional[dict] = None,
+                positions: Optional[torch.Tensor] = None, from_zero: bool = False):
+        """``enc_kv``: this layer's (k, v) from :func:`cross_kv_from_encoder`."""
+        h, new_cache = attention_apply(
+            self.self_attn.params(),
+            self.ln_self(x, cfg.norm_eps),
+            n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim,
+            impl=cfg.attention_impl,
+            pos_type="none",  # whisper's positions are sinusoidal, added to the embeddings
+            positions=positions,
+            cache=cache,
+            causal_scheduling=cfg.causal_scheduling,
+            mesh_axes=cfg.mesh_axes if cfg.shard_attn_activations else (),
+            from_zero=from_zero,
+        )
+        x = x + h
+        c, _ = attention_apply(
+            self.cross_attn.params(),
+            self.ln_cross(x, cfg.norm_eps),
+            n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim,
+            impl="naive",
+            cross_kv=enc_kv,
+            pos_type="none",
+        )
+        x = x + c
+        x = x + self.mlp(self.ln_mlp(x, cfg.norm_eps))
+        return x, new_cache
+
+
+def cross_kv_from_encoder(block: DecoderXBlock, enc_out: torch.Tensor, cfg: ArchConfig):
+    """One decoder layer's cross-attention (k, v), each (b, hkv, s_enc, hd),
+    from the encoder's output (computed once, at prefill)."""
+    b, s, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    _, wk, wv = qkv_slices(block.cross_attn.params(), cfg.n_heads, cfg.n_kv_heads, hd)
+    k = (enc_out @ wk).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = (enc_out @ wv).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    return k, v

@@ -16,8 +16,8 @@
 
 ``device=None`` means ``"cuda"`` (raises without a card).  A device mesh is
 not ported: ``mesh`` must be ``None`` (ROADMAP.md Queue 1, item 5d).  Only
-the dense family trains: the moe, ssm and hybrid models serve and score in
-the port but their training is ROADMAP.md Queue 1, item 5c.
+the dense family trains: the moe, ssm, hybrid, vlm and audio models serve
+and score in the port but their training is ROADMAP.md Queue 1, item 5c.
 """
 
 from __future__ import annotations

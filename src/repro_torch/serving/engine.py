@@ -74,12 +74,29 @@ class ServingEngine:
 
     def _make_batch(self, reqs: List[Request]) -> Dict[str, Any]:
         """Front-pad prompts to a common length (pad tokens come causally
-        before every real token and logits are taken at the last position)."""
+        before every real token and logits are taken at the last position).
+        The vlm and audio families get zero ``patches`` or ``frames`` (their
+        stub frontends' outputs), as the reference's engine gives them."""
         plen = max(len(r.prompt) for r in reqs)
         toks = np.zeros((len(reqs), plen), dtype=np.int32)
         for i, r in enumerate(reqs):
             toks[i, plen - len(r.prompt) :] = r.prompt
-        return {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if self.cfg.family == "vlm":
+            batch["patches"] = torch.zeros((len(reqs), self.cfg.vision_tokens, self.cfg.vision_dim),
+                                           dtype=torch.float32, device=self.device)
+        if self.cfg.family == "audio":
+            batch["frames"] = torch.zeros((len(reqs), self.cfg.encoder_seq, self.cfg.d_model),
+                                          dtype=torch.float32, device=self.device)
+        return batch
+
+    def cache_len(self, batch: Dict[str, Any], n_new: int) -> int:
+        """The cache entries a batch needs: its prompt and ``n_new`` tokens,
+        and for the vlm the ``vision_tokens`` its prefill writes first.  (The
+        reference's engine sizes a vlm cache without them, and its prefill
+        raises on the shorter cache: ROADMAP.md Queue 3, reference caveat (c).)"""
+        vision = self.cfg.vision_tokens if self.cfg.family == "vlm" else 0
+        return vision + batch["tokens"].shape[1] + n_new
 
     def step(self) -> List[Dict[str, Any]]:
         """Serve one admitted batch from the queue; returns completions."""
@@ -88,7 +105,7 @@ class ServingEngine:
         reqs, self.queue = self.queue[: self.serve.max_batch], self.queue[self.serve.max_batch :]
         batch = self._make_batch(reqs)
         n_new = max(r.max_new_tokens for r in reqs)
-        cache = self.bundle.init_cache(len(reqs), batch["tokens"].shape[1] + n_new)
+        cache = self.bundle.init_cache(len(reqs), self.cache_len(batch, n_new))
         logits, cache = self._prefill(self.params, batch, cache)
         if self.cfg.compression.kv_cache_compression and self.cfg.family != "ssm":
             cache = compress_cache(cache, self.cfg.compression, engine=default_engine(self.device))

@@ -81,16 +81,21 @@ def _defined_in(module):
                   if not n.startswith("_") and callable(v) and getattr(v, "__module__", None) == module)
 
 
-#: the LM modules of the moe/ssm/hybrid slice: every public name the
-#: reference defines in ``models.moe`` and ``models.ssm``, and the group
-#: builders and model entry points the slice ports; a reference
+#: the LM modules of the moe/ssm/hybrid and vlm/audio slices: every public
+#: name the reference defines in ``models.moe`` and ``models.ssm``, and the
+#: blocks, layers and model entry points the slices port; a reference
 #: ``*_init``/``*_apply`` pair is one module class in the port
 MODEL_NAMES = ([("models.moe", n, n) for n in _defined_in("repro.models.moe")]
                + [("models.ssm", n, n) for n in _defined_in("repro.models.ssm")]
                + [("models.transformer", n, p) for n, p in (
                    ("remat_wrap", "remat_wrap"), ("moe_group_init", "MoEGroup"), ("moe_group_apply", "MoEGroup"),
                    ("zamba_shared_init", "ZambaShared"), ("zamba_group_init", "ZambaGroup"),
-                   ("zamba_group_apply", "ZambaGroup"))]
+                   ("zamba_group_apply", "ZambaGroup"), ("encoder_block_init", "EncoderBlock"),
+                   ("encoder_block_apply", "EncoderBlock"), ("decoder_xblock_init", "DecoderXBlock"),
+                   ("decoder_xblock_apply", "DecoderXBlock"), ("cross_kv_from_encoder", "cross_kv_from_encoder"))]
+               + [("models.layers", n, n) for n in ("sinusoidal_embed", "sinusoidal_positions", "gelu_mlp_init",
+                                                   "gelu_mlp")]
+               + [("models.attention", "qkv_slices", "qkv_slices")]
                + [("models.model", n, n) for n in ("build_model", "ModelBundle")])
 
 

@@ -149,6 +149,30 @@ def test_flash_attention_matches_twin(case, d, dtype):
         assert _bf16_within_one_ulp(got, want)
 
 
+# (b, hq, hkv, sq, sk, d): llava-next-mistral-7b's forward (2880 patches +
+# 2048 tokens: 38.5 tiles of 128 rows, GQA 4, d = 128) and whisper-tiny's
+# decoder at its 448-token context (MHA, d = 64)
+FLASH_FAMILY_CASES = [(4, 32, 8, 4928, 4928, 128), (4, 6, 6, 448, 448, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", FLASH_FAMILY_CASES, ids=["llava", "whisper"])
+def test_flash_attention_matches_twin_at_the_vlm_and_audio_shapes(case, dtype):
+    dev = _cuda()
+    b, hq, hkv, sq, sk, d = case
+    gen = torch.Generator(device=dev).manual_seed(sq)
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+               for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    got = t_flash.flash_attention(q, k, v)
+    want = attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert float(torch.max(torch.abs(got - want))) <= 3e-5
+    else:
+        assert _bf16_within_one_ulp(got, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_flash_attention_non_causal_matches_twin(dtype):
@@ -841,7 +865,7 @@ def test_server_cli_serves_through_the_kernels_on_the_card(tmp_path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "zamba2-7b", "llava-next-mistral-7b", "whisper-tiny"])
 def test_serve_cli_serves_a_new_family_at_full_width(arch):
     """``python -m repro_torch.launch.serve --arch <id> --preset full`` on
     the card: the published config with random weights, KV compression on,
@@ -853,10 +877,14 @@ def test_serve_cli_serves_a_new_family_at_full_width(arch):
     import sys
 
     _cuda()
+    torch.cuda.empty_cache()  # the card's memory to the served model, not to earlier tests' cache
     root = pathlib.Path(__file__).resolve().parents[1]
+    # a batch of 4 llava rows is ~0.8 G KV values (2880 vision entries a
+    # row): its compression's temporaries do not fit beside the 15 GB model
+    batch = ["--max-batch", "2"] if arch == "llava-next-mistral-7b" else []
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--preset", "full",
-         "--requests", "4", "--max-new-tokens", "4", "--kv-compression"],
+         "--requests", "4", "--max-new-tokens", "4", "--kv-compression", *batch],
         capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=str(root / "src")), cwd=root,
         timeout=900)
     assert out.returncode == 0, out.stderr
@@ -864,3 +892,67 @@ def test_serve_cli_serves_a_new_family_at_full_width(arch):
     tokens = [int(t) for line in out.stdout.splitlines() if line.startswith("uid=")
               for t in re.findall(r"\d+", line.split(":", 1)[1])]
     assert len(tokens) == 16
+
+
+def _scored(cfg, params, batch):
+    """(loss, flash launches) of one forward on the card, no autograd graph."""
+    from repro_torch.models.model import build_model
+
+    with torch.no_grad():
+        before = t_flash.launches["flash_attention"]
+        loss = float(build_model(cfg, device="cuda").loss(params, batch))
+        return loss, t_flash.launches["flash_attention"] - before
+
+
+@pytest.mark.gpu
+def test_llava_layer_at_full_width_on_the_card():
+    """One llava-next-mistral-7b layer at full width (d_model 4096, GQA
+    32/8, d_ff 14336, vocab 32000) behind the projector, bf16 with the flash
+    kernel: 2880 standard-normal patches + 512 tokens; one launch, the loss
+    within 1e-3 of naive attention's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    dev = _cuda()
+    cfg = get_config("llava-next-mistral-7b", n_layers=1, attention_impl="pallas")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build_model(cfg, device=dev).init(gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, 512), generator=gen, device=dev),
+             "patches": torch.randn((1, cfg.vision_tokens, cfg.vision_dim), generator=gen, device=dev)}
+    loss, launches = _scored(cfg, params, batch)
+    other, naive_launches = _scored(dataclasses.replace(cfg, attention_impl="naive"), params, batch)
+    assert launches == 1 and naive_launches == 0
+    assert np.isfinite(loss) and abs(loss - other) <= 1e-3 * abs(other)
+
+
+@pytest.mark.gpu
+def test_whisper_forward_on_the_card():
+    """whisper-tiny at full width and depth (4 + 4 layers, 1500 frames, 448
+    decoder tokens): the float32 loss on the card within rtol 1e-5 of the
+    CPU's with the same weights and inputs, and the bf16 loss with one flash
+    launch a decoder layer within 1e-3 of naive attention's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    dev = _cuda()
+    cfg = get_config("whisper-tiny", attention_impl="pallas")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    params = build_model(cfg32, device="cpu").init(gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 448), generator=gen),
+             "frames": torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen)}
+    with torch.no_grad():
+        want = float(build_model(cfg32, device="cpu").loss(params, batch))
+    on_card = build_model(cfg32, device=dev).load(params.state_dict())
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    got, launches = _scored(cfg32, on_card, batch)
+    assert launches == cfg.n_layers and abs(got - want) <= 1e-5 * abs(want)
+
+    params16 = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(1))
+    loss, launches = _scored(cfg, params16, batch)
+    other, _ = _scored(dataclasses.replace(cfg, attention_impl="naive"), params16, batch)
+    assert launches == cfg.n_layers and np.isfinite(loss) and abs(loss - other) <= 1e-3 * abs(other)

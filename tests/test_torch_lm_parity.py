@@ -4,9 +4,11 @@ A module of helpers, not of tests (no ``test_`` names): the test files
 import it.
 
 Used by ``test_torch_models.py`` (the dense configs), ``test_torch_moe.py``,
-``test_torch_ssm.py`` and ``test_torch_hybrid.py``.  Both packages get the
-reference's parameters (``convert.lm_params_from_reference``) and the same
-numpy tokens.  Tolerances, float32 throughout:
+``test_torch_ssm.py``, ``test_torch_hybrid.py``, ``test_torch_vlm.py`` and
+``test_torch_whisper.py``.  Both packages get the reference's parameters
+(``convert.lm_params_from_reference``) and the same numpy tokens (and, for
+the vlm and audio families, the same numpy ``patches`` or ``frames``: see
+:func:`batch`).  Tolerances, float32 throughout:
 
   * loss rtol 1e-5; prefill and decode logits atol 1e-4 (a few layers of
     float32 products summed in another order; the same bars as the dense
@@ -59,6 +61,31 @@ def tokens(cfg, b=2, s=40, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)).astype(np.int32)
 
 
+def stubs(cfg, b=2, seed=2):
+    """The family's stub frontend output, standard normal float32 numpy:
+    ``patches`` (vlm), ``frames`` (audio), nothing for the other families."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        return {"patches": rng.standard_normal((b, cfg.vision_tokens, cfg.vision_dim)).astype(np.float32)}
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal((b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)}
+    return {}
+
+
+def batch(cfg, toks, seed=2):
+    """``{"tokens": toks}`` with the family's :func:`stubs` for its rows."""
+    return {"tokens": toks, **stubs(cfg, toks.shape[0], seed)}
+
+
+def jnp_batch(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+def vision(cfg):
+    """Cache entries a vlm prefill writes before the prompt's."""
+    return cfg.vision_tokens if cfg.family == "vlm" else 0
+
+
 def as_np(t):
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
@@ -70,9 +97,10 @@ def check_loss(arch, **overrides):
     rcfg, cfg = configs(arch, **overrides)
     params_np = ref_params(rcfg)
     toks = tokens(cfg)
-    want = float(r_build_model(rcfg).loss(params_np, {"tokens": jnp.asarray(toks)}))
+    b = batch(cfg, toks)
+    want = float(r_build_model(rcfg).loss(params_np, jnp_batch(b)))
     bundle, params = port_model(cfg, params_np)
-    got = float(bundle.loss(params, {"tokens": toks}).detach())
+    got = float(bundle.loss(params, b).detach())
     assert np.isfinite(got)
     np.testing.assert_allclose(got, want, rtol=1e-5)
     return bundle, params, toks
@@ -85,9 +113,11 @@ def check_prefill_decode(arch, steps=3, **overrides):
     rb = r_build_model(rcfg)
     tb, params = port_model(cfg, params_np)
     toks = tokens(cfg, b=2, s=12, seed=4)
-    rc, tc = rb.init_cache(2, 12 + steps + 1), tb.init_cache(2, 12 + steps + 1)
-    rl, rc = rb.prefill(params_np, {"tokens": jnp.asarray(toks)}, rc)
-    tl, tc = tb.prefill(params, {"tokens": toks}, tc)
+    b = batch(cfg, toks)
+    n = vision(cfg) + 12 + steps + 1
+    rc, tc = rb.init_cache(2, n), tb.init_cache(2, n)
+    rl, rc = rb.prefill(params_np, jnp_batch(b), rc)
+    tl, tc = tb.prefill(params, b, tc)
     np.testing.assert_allclose(tl.numpy(), np.asarray(rl), atol=1e-4, rtol=0)
     for t in range(steps):
         nxt = np.full((2, 1), 7 + t, dtype=np.int32)
@@ -104,8 +134,9 @@ def check_incremental_equals_full(arch, **overrides):
     bundle = build_model(cfg, device="cpu")
     params = bundle.init(torch.Generator().manual_seed(0))
     toks = tokens(cfg, b=1, s=12, seed=5)
-    full, _ = bundle.prefill(params, {"tokens": toks}, bundle.init_cache(1, 12))
-    _, cache = bundle.prefill(params, {"tokens": toks[:, :11]}, bundle.init_cache(1, 12))
+    n = vision(cfg) + 12
+    full, _ = bundle.prefill(params, batch(cfg, toks), bundle.init_cache(1, n))
+    _, cache = bundle.prefill(params, batch(cfg, toks[:, :11]), bundle.init_cache(1, n))
     step, _ = bundle.decode(params, toks[:, 11:], cache)
     np.testing.assert_allclose(step[:, -1].numpy(), full[:, -1].numpy(), atol=1e-4, rtol=0)
 
@@ -176,15 +207,20 @@ def check_serving(arch, kv_compression=False, max_batch=2, **overrides):
     assert compared >= 10
 
 
-def port_cache(ref_cache, pos):
-    """The port's layout of a reference cache: the same leaves as tensors,
-    the per-layer ``pos`` arrays dropped for one int ``pos`` at the top."""
-    def walk(node):
-        return {k: walk(v) if isinstance(v, dict) else torch.from_numpy(np.array(v))
-                for k, v in node.items() if k != "pos"}
+def port_cache(ref_cache, pos, at=()):
+    """The port's layout of a reference cache: the same leaves as tensors
+    (a tuple of leaves stays a tuple), the per-layer ``pos`` arrays dropped
+    for one int ``pos`` in the subtree at path ``at`` (the top; whisper's
+    ``("self",)``)."""
+    def tensor(v):
+        return tuple(map(tensor, v)) if isinstance(v, tuple) else torch.from_numpy(np.array(v))
 
-    out = walk(ref_cache)
-    return {**out, "pos": pos} if pos is not None else out
+    def walk(node, path):
+        out = {k: walk(v, path + (k,)) if isinstance(v, dict) else tensor(v)
+               for k, v in node.items() if k != "pos"}
+        return {**out, "pos": pos} if pos is not None and path == at else out
+
+    return walk(ref_cache, ())
 
 
 def kv_paths(cache, path=()):
@@ -214,12 +250,12 @@ def check_compress_nested_cache(arch, block=32, Delta_rel=1e-4):
     params_np = ref_params(rcfg)
     rb = r_build_model(rcfg)
     toks = tokens(cfg, b=2, s=40, seed=6)
-    rcache = rb.init_cache(2, 48)
-    _, rcache = rb.prefill(params_np, {"tokens": jnp.asarray(toks)}, rcache)
+    rcache = rb.init_cache(2, vision(cfg) + 48)
+    _, rcache = rb.prefill(params_np, jnp_batch(batch(cfg, toks)), rcache)
     rcomp = RCompressionConfig(kv_cache_compression=True, kv_Delta_rel=Delta_rel)
     comp = CompressionConfig(kv_cache_compression=True, kv_Delta_rel=Delta_rel)
     want = r_compress_cache(rcache, rcomp, block=block)
-    cache = port_cache(rcache, 40)
+    cache = port_cache(rcache, vision(cfg) + 40, at=("self",) if cfg.family == "audio" else ())
 
     engine = CorrectionEngine(backend="batched", device="cpu")
     calls = []

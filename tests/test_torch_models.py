@@ -87,13 +87,20 @@ def test_ported_arch_config_is_the_reference(arch):
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in PORTED_ARCH_IDS])
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-tiny"])
 def test_unported_arch_raises(arch):
-    """The vlm and audio archs raise, naming the slice that ports them."""
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5b"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5b"):
-        get_smoke_config(arch)
+    """The vlm and audio archs: their configs, full and SMOKE, are the
+    reference's field for field, and they build; their training is not
+    ported, and ``Trainer`` raises for them, naming ROADMAP.md Queue 1,
+    item 5c."""
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    for ours, theirs in ((get_config(arch), r_get_config(arch)),
+                         (get_smoke_config(arch), r_get_smoke_config(arch))):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert t_model.build_model(get_smoke_config(arch), device="cpu").cfg.name == arch
+    with pytest.raises(NotImplementedError, match="Queue 1, item 5c"):
+        Trainer(get_smoke_config(arch), TrainerConfig(), device="cpu")
 
 
 def test_unknown_arch_raises():
@@ -101,22 +108,31 @@ def test_unknown_arch_raises():
         get_config("gpt-9")
 
 
-PORTED_FAMILY_ARCH = {"moe": "granite-moe-3b-a800m", "ssm": "mamba2-2.7b", "hybrid": "zamba2-7b"}
+PORTED_FAMILY_ARCH = {"moe": "granite-moe-3b-a800m", "ssm": "mamba2-2.7b", "hybrid": "zamba2-7b",
+                     "vlm": "llava-next-mistral-7b", "audio": "whisper-tiny"}
 
 
 @pytest.mark.parametrize("family", sorted(PORTED_FAMILY_ARCH))
 def test_ported_family_builds(family):
-    """moe, ssm and hybrid build (their parity with the reference is in
-    test_torch_{moe,ssm,hybrid}.py)."""
+    """moe, ssm, hybrid, vlm and audio build (their parity with the
+    reference is in test_torch_{moe,ssm,hybrid,vlm,whisper}.py)."""
     bundle = t_model.build_model(get_smoke_config(PORTED_FAMILY_ARCH[family]), device="cpu")
     assert bundle.cfg.family == family
 
 
 @pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_unported_family_raises(family):
-    cfg = dataclasses.replace(get_smoke_config(ARCH), family=family)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5b"):
-        t_model.build_model(cfg, device="cpu")
+    """The vlm and audio families build and score, but their training is
+    not ported: ``Trainer`` raises, naming ROADMAP.md Queue 1, item 5c; an
+    unknown family raises in ``build_model``."""
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_smoke_config(PORTED_FAMILY_ARCH[family])
+    assert t_model.build_model(cfg, device="cpu").cfg.family == family
+    with pytest.raises(NotImplementedError, match="Queue 1, item 5c"):
+        Trainer(cfg, TrainerConfig(), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        t_model.build_model(dataclasses.replace(cfg, family=family + "x"), device="cpu")
 
 
 def test_device_defaults_to_cuda():
@@ -368,7 +384,7 @@ def test_registry_is_the_references():
     from repro.configs import SHAPES as R_SHAPES
 
     assert ARCH_IDS == R_ARCH_IDS and SHAPES == R_SHAPES
-    assert set(PORTED_ARCH_IDS) == set(ARCH_IDS) - {"llava-next-mistral-7b", "whisper-tiny"}
+    assert PORTED_ARCH_IDS == ARCH_IDS
 
 
 @pytest.mark.parametrize("arch", DENSE)

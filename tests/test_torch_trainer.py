@@ -317,13 +317,22 @@ def test_token_statistics_are_the_references():
 
 
 def test_pipeline_for_dense_only():
+    """A dense config's pipeline carries tokens only; the vlm's and the
+    audio's carry the reference's stub keys and shapes (``patches``, with
+    ``seq_len - vision_tokens`` tokens; ``frames``)."""
+    from repro.data.pipeline import pipeline_for as r_pipeline_for
+
     cfg = get_smoke_config(ARCH)
     p = pipeline_for(cfg, 16, 2, seed=1)
     assert (p.vocab, p.seq_len, p.global_batch, p.seed) == (cfg.vocab, 16, 2, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        pipeline_for(dataclasses.replace(cfg, family="vlm"), 16, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        TokenPipeline(vocab=10, seq_len=4, global_batch=2, audio_frames=3)
+    assert set(p.batch_at(0)) == {"tokens"}
+    for arch in ("llava-next-mistral-7b", "whisper-tiny"):
+        ours = pipeline_for(get_smoke_config(arch), 40, 2).batch_at(0)
+        theirs = r_pipeline_for(r_get_smoke_config(arch), 40, 2).batch_at(0)
+        assert {k: tuple(v.shape) for k, v in ours.items()} == {k: v.shape for k, v in theirs.items()}
+        assert {k: str(v.dtype).split(".")[-1] for k, v in ours.items()} == {k: str(v.dtype) for k, v in theirs.items()}
+    b = TokenPipeline(vocab=10, seq_len=4, global_batch=2, audio_frames=3, audio_dim=5).batch_at(0)
+    assert b["frames"].shape == (2, 3, 5)
 
 
 def test_pipeline_fields_are_the_references():

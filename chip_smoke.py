@@ -10,8 +10,8 @@ card at the main path's shapes, then drives ``FFCz.compress`` /
 rechecks both stored bounds in float64, drives the qwen2-0.5b dense LM at
 full width (``ModelBundle.loss``, ``ServingEngine``, ``Trainer``), the moe,
 ssm, hybrid, vlm and audio LM families at full width (``ModelBundle.loss``,
-``ServingEngine``), and the FFCz service path (temporal streams,
-``FFCzService``, session recovery).
+``ServingEngine``, and ``Trainer`` at cut depths), and the FFCz service path
+(temporal streams, ``FFCzService``, session recovery).
 Phases, one JSON line each (or more):
 
   1 device    card name, count, nvidia-smi name and power limit
@@ -62,9 +62,10 @@ Phases, one JSON line each (or more):
               with decode logits within 2e-2 of the floor (moe at a capacity
               where no pair drops, then at the default for tokens/s), and
               (not mamba2) KV compression of the nested cache at
-              kv_Delta_rel 1e-4 through kernels 3p/4p: every pencil
-              rechecked in float64, the kernels' first calls held bitwise
-              against the twins.  mamba2's bf16 decode and zamba2's bf16
+              kv_Delta_rel 1e-4 through kernels 3p/4p, 4 requests a batch:
+              every pencil rechecked in float64, the loop's peak memory
+              over its packed batch (loop_memory_factor), the kernels'
+              first calls held bitwise against the twins.  mamba2's bf16 decode and zamba2's bf16
               loss and decode are reported there and held at a check-only
               depth (CUTS): mamba2 at 48 layers, zamba2 at 12 (part
               bf16_check_depth: the loss within 1e-3; one decode step after
@@ -74,7 +75,9 @@ Phases, one JSON line each (or more):
               pencils of 1024) with the batched engine, fft_impl "pallas"
               (kernels 3 and 4 per pencil) and "xla", and one correct call
               with block 1023 (kernels 1 and 2 per pencil): every pencil's
-              bounds rechecked in float64 on the host
+              bounds rechecked in float64 on the host; each call's peak
+              device memory above its start over its packed batch's bytes
+              (loop_memory_factor)
   train       Trainer on qwen2-0.5b at full width, 12 of 24 layers (CUTS; bf16 blocks,
               remat "dots", 4x2048 tokens a step) with FFCz gradient
               compression (grad_Delta_rel 5e-5: at the default 1e-2 the
@@ -93,6 +96,25 @@ Phases, one JSON line each (or more):
               engine) on a trained (params, opt_state) at full width, 2
               layers deep; a new Trainer restores it (B leaves within their
               stored E and Delta in float64, R leaves bitwise) and steps
+  train_family  Trainer on granite-moe-3b-a800m (8 of 32 layers), mamba2-2.7b
+              (16 of 64), zamba2-7b (12 of 81: two groups, the shared block
+              called twice), llava-next-mistral-7b (4 of 32; 2 rows of 2880
+              patches + 2048 tokens) and whisper-tiny (4 + 4) at full width
+              (CUTS; bf16 blocks, remat "dots", xla_flash, 4x2048 tokens,
+              whisper 4x(1500 frames + 448 tokens)), FFCz gradient
+              compression at grad_Delta_rel 5e-5 through a pallas engine
+              (3p/4p; 1p/2p for a leaf of odd length below the block, which
+              none of them has), raw checkpoints: a float32 gradient check
+              at 2 layers (zamba2 6: its first group), full width, every
+              leaf within 1e-4 of its largest |g| of a second path (naive
+              attention; mamba2 half the SSD chunk; moe at no-drop
+              capacity), a zeroed leaf missing that bar; 3 timed steps (step
+              seconds, tokens/s, compress seconds, more than half the
+              pencils at 2+ iterations, peak memory, loop_memory_factor, the
+              kernels' first calls held bitwise against the twins); then at
+              a cut depth (RESUME_LAYERS, CUTS) 2 steps, a failure at step 1
+              with a checkpoint every step, and a new Trainer that resumes
+              there and ends within rtol 1e-4 of the uninterrupted loss
   stream_field  TemporalCodec in field mode (pallas engine) on 5 frames of
               an evolving 128^3 lognormal field (keyframe every 4, linear),
               warm start on and off (kernels 3, 4), then 3 frames cropped
@@ -136,6 +158,10 @@ are compared on one card in one run.
 
 prints the bf16 decode readings of mamba2-2.7b and zamba2-7b at several
 depths that the check-only depths were chosen from.
+
+    python3 chip_smoke.py --train-families
+
+builds the kernels and runs phase train_family alone, with its gates.
 """
 
 from __future__ import annotations
@@ -179,7 +205,16 @@ CUTS = ["phase 6's pspec_rel case at 64^3 and its E_roi case at 128^3, instead o
         "nearly all host float64 polish (0.3-8.6 s a 128^3 frame, 1.5-2 s an EEG frame)",
         "phase lm_family's bf16 gates of mamba2-2.7b at 48 of 64 layers and of zamba2-7b at 12 of 81 (2 groups, "
         "the shared block reused), every width kept: a check-only depth beside the full-depth runs, which report "
-        "them (CHECK_DEPTH; the readings behind it: python3 chip_smoke.py --decode-sweep)"]
+        "them (CHECK_DEPTH; the readings behind it: python3 chip_smoke.py --decode-sweep)",
+        "phase train_family at 8 of 32 granite-moe-3b-a800m layers, 16 of 64 mamba2-2.7b, 12 of 81 zamba2-7b "
+        "(two groups: the shared block runs twice) and 4 of 32 llava-next-mistral-7b (2 rows of 2880 patches + "
+        "2048 tokens), every width kept (a cut for memory: the parameters, float32 moments, gradients and the "
+        "pencil loop of a 1.0-1.4 G-parameter model fill most of the 80 GB card)",
+        "phase train_family's failure-and-resume runs at 2 steps (a failure at step 1, not 3 steps and step 2) "
+        "and shallower, every width kept: 2 granite-moe layers, 2 mamba2, 6 zamba2 (one group with the shared "
+        "block), 1 llava, whisper whole (a cut for time: raw checkpoints moved ~0.56 GB/s on an NVIDIA H100 80GB "
+        "HBM3 machine at 700 W, and at the train depths the five archs' saves and restores took 290 of the "
+        "phase's 311 s against the 150 s it may add)"]
 
 
 class SmokeFailure(Exception):
@@ -922,15 +957,21 @@ def recheck_pencils(errs, Es, Ds, corrected, block):
     return worst_s, worst_f
 
 
-def record_correct(engine):
+def record_correct(engine, held=lambda: 0):
     """Record each ``engine.correct`` call, as (errs, Es, Ds, (corrected,
-    stats), block), in the returned list until the returned function is
-    called."""
-    calls, correct = [], engine.correct
+    stats), block, loop memory factor), in the returned list until the
+    returned function is called.  The factor is the call's peak device
+    memory above what was allocated when it began, over the bytes of its
+    packed (pencils, block) float32 batch (:func:`loop_memory`, ``held``
+    as there)."""
+    from repro_torch.core.engine import CorrectionEngine
+
+    calls = []
+    measured, factors = loop_memory(CorrectionEngine.correct, held)
 
     def recording(errs, Es, Ds, **kw):
-        out = correct(errs, Es, Ds, **kw)
-        calls.append((errs, Es, Ds, out, kw["block"]))
+        out = measured(engine, errs, Es, Ds, **kw)
+        calls.append((errs, Es, Ds, out, kw["block"], factors.pop()[1]))
         return out
 
     engine.correct = recording
@@ -940,13 +981,15 @@ def record_correct(engine):
 def recheck_calls(path, calls):
     """:func:`recheck_pencils` over calls that :func:`record_correct` kept,
     each of which must have converged: their blocks, values, pencils,
-    iteration histogram and worst ratios to E and Delta."""
+    iteration histogram, worst ratios to E and Delta and the largest loop
+    memory factor."""
     import numpy as np
 
     out = {"blocks": [], "values": 0, "pencils": 0, "iterations_histogram": {},
-           "worst_abs_over_E": 0.0, "worst_spectrum_over_Delta": 0.0}
+           "worst_abs_over_E": 0.0, "worst_spectrum_over_Delta": 0.0, "loop_memory_factor": 0.0}
     hist = out["iterations_histogram"]
-    for errs, Es, Ds, (corrected, stats), blk in calls:
+    for errs, Es, Ds, (corrected, stats), blk, factor in calls:
+        out["loop_memory_factor"] = max(out["loop_memory_factor"], factor)
         require(bool(stats.converged.all()), f"{path}: a pencil did not converge")
         s, f = recheck_pencils(errs, Es, Ds, corrected, blk)
         out["worst_abs_over_E"] = max(out["worst_abs_over_E"], s)
@@ -1027,12 +1070,13 @@ def phase_pencils(dev, records, cfg, params, tokens=(4, 2048), block=1024, kv_De
         counts = read()
         require(len(calls) == 1, f"pencils {label}: {len(calls)} correct calls, want 1")
         rechecked = recheck_calls(f"pencils {label}", calls)
-        (errs, Es, _, _, blk), = calls
+        (errs, Es, _, _, blk, _), = calls
         case = {"case": label, "fft_impl": engine.fft_impl, "backend": engine.backend, "block": blk,
                 "values": rechecked["values"], "pencils": rechecked["pencils"], "seconds": seconds,
                 "iterations_histogram": rechecked["iterations_histogram"], "converged": True,
                 "worst_abs_over_E": rechecked["worst_abs_over_E"],
                 "worst_spectrum_over_Delta": rechecked["worst_spectrum_over_Delta"],
+                "loop_memory_factor": rechecked["loop_memory_factor"],
                 "launches": {k: v for k, v in counts.items() if v}}
         return case, counts, result, errs, Es
 
@@ -1069,11 +1113,6 @@ FAMILIES = ("qwen2-0.5b", "granite-moe-3b-a800m", "mamba2-2.7b", "zamba2-7b", "l
 # phase_lm_family's (tokens, prompts) where they are not (4, 2048) and (4,
 # 600): whisper's decoder context is 448 tokens (16 of them served)
 LM_SHAPES = {"whisper-tiny": ((4, 448), (4, 432))}
-# rows a batch of the KV-compression run where not 4: a batch of 4 llava
-# rows is ~0.9 G KV values (2880 vision entries a row), and the batched
-# loop's temporaries (~15-20 copies of them) with the kernels' captured
-# first calls do not fit an 80 GB card beside the 15 GB model
-KV_SERVE_BATCH = {"llava-next-mistral-7b": 2}
 # arch: (layers, gates).  In bf16 the random-weight mamba2 and zamba2
 # stacks carry one rounding, through the layers, into logit differences
 # that grow with depth to the logits' own order; at full depth their served
@@ -1324,10 +1363,9 @@ def phase_lm_family(dev, records, arch, cfg=None, tokens=(4, 2048), prompts=(4, 
              the two correct forwards, for moe at :func:`no_drop`'s
              capacity, then again at the default for tokens/s
       serve_kv_compression  (not ssm) the same requests with KV compression
-             at ``kv_Delta_rel`` through a pallas engine (llava two a batch:
-             KV_SERVE_BATCH; its token differences from the uncompressed run
-             then include another front padding's): after each batch's
-             compression its correct call's pencils rechecked in float64 and
+             at ``kv_Delta_rel`` through a pallas engine, 4 a batch: after
+             each batch's compression its correct call's pencils rechecked in
+             float64, its loop's peak memory over its packed batch, and
              kernels 3p/4p's first call at each shape held bitwise against
              the twins, kernels 3p/4p counted
 
@@ -1398,21 +1436,21 @@ def phase_lm_family(dev, records, arch, cfg=None, tokens=(4, 2048), prompts=(4, 
         cfg_kv = dataclasses.replace(cfg, compression=dataclasses.replace(
             cfg.compression, kv_cache_compression=True, kv_Delta_rel=kv_Delta_rel))
         pallas = CorrectionEngine(backend="batched", fft_impl="pallas", device=dev)
-        calls, stop = record_correct(pallas)
         captured, undo = first_calls(*path_wrappers(even=True))
+        calls, stop = record_correct(pallas, held=lambda: captured_bytes(captured))
         batches = []  # each batch's correct calls, sub-tensors and recheck
 
         def check_batch():
             # a batch's pencils rechecked and the kernels' first calls held,
             # then let go, before the next batch: two batches of llava's
             # cache (~0.9 G values each) with their errors, corrections and
-            # captured kernel inputs do not fit beside the model
+            # captured kernel inputs would not fit beside the model
             batches.append((len(calls), sum(len(c[0]) for c in calls), recheck_calls(f"{arch} KV", calls)))
             calls.clear()
             without_counting(lambda: hold_at_path_shapes(f"lm_family {cfg.name}", records, captured))
             captured.clear()
 
-        kv_batch = KV_SERVE_BATCH.get(arch, 4)
+        kv_batch = 4
         read = reset_launches()
         try:
             served_kv = serve_and_check(cfg_kv, params, requests, dev, check=False, engine=pallas,
@@ -1434,6 +1472,7 @@ def phase_lm_family(dev, records, arch, cfg=None, tokens=(4, 2048), prompts=(4, 
              decode_seconds=served_kv["decode_seconds"],
              worst_abs_over_E=max(r["worst_abs_over_E"] for r in rechecks),
              worst_spectrum_over_Delta=max(r["worst_spectrum_over_Delta"] for r in rechecks),
+             loop_memory_factor=max(r["loop_memory_factor"] for r in rechecks),
              recheck_and_hold_seconds=served_kv["after_compress_seconds"],
              tokens_differing_from_uncompressed=differ, launches={k: v for k, v in counts.items() if v})
         want_calls = -(-len(requests) // kv_batch)
@@ -1574,6 +1613,305 @@ def phase_train(dev, cfg=None, tokens=(4, 2048), grad_Delta_rel=5e-5, steps=4, f
     return c
 
 
+# phase train_family: the moe, ssm, hybrid, vlm and audio families' Trainer at
+# full width, depths cut (CUTS): arch -> (layers or None for the published
+# depth, (rows, seq_len) a step; a vlm's seq_len counts its 2880 patches)
+TRAIN_FAMILIES = {"granite-moe-3b-a800m": (8, (4, 2048)), "mamba2-2.7b": (16, (4, 2048)),
+                  "zamba2-7b": (12, (4, 2048)), "llava-next-mistral-7b": (4, (2, 2880 + 2048)),
+                  "whisper-tiny": (None, (4, 448))}
+# the float32 gradient check's depth where not 2 layers: zamba2's first
+# group (2 layers would hold no attention, only the mamba tail)
+GRAD_CHECK_LAYERS = {"zamba2-7b": 6}
+# the depth of the failure-and-resume runs (CUTS; None: the train depth):
+# raw checkpoints move ~0.56 GB/s on the card's host, and a 1 G-parameter
+# state is ~10 GB
+RESUME_LAYERS = {"granite-moe-3b-a800m": 2, "mamba2-2.7b": 2, "zamba2-7b": 6, "llava-next-mistral-7b": 1,
+                 "whisper-tiny": None}
+# the leaf whose gradient the gradient check's planted fault zeroes: the
+# family's own piece (the first parameter whose name starts so)
+FAULT_LEAF = {"moe": "groups.0.moe_block.moe.router", "ssm": "layers.0.in_proj", "hybrid": "shared.attn.wqkv",
+              "vlm": "projector.w1", "audio": "encoder.0.attn.wqkv"}
+
+
+def loop_memory(engine_correct, held=lambda: 0):
+    """Wrap an unbound ``CorrectionEngine.correct``: each call's packed
+    (pencils, block) float32 bytes and its peak device memory above what was
+    allocated when it began, less what ``held()`` grew by in the call (the
+    harness's copies of the kernels' first-call inputs, :func:`first_calls`),
+    over those bytes, are appended to the returned list; ``peak`` keeps the
+    largest device peak seen across the calls (each call resets the peak
+    statistics)."""
+    import torch
+
+    calls, peak = [], {"bytes": 0}
+
+    def call(self, errs, Es, Ds, **kw):
+        torch.cuda.synchronize()
+        peak["bytes"] = max(peak["bytes"], torch.cuda.max_memory_allocated())
+        base, kept = torch.cuda.memory_allocated(), held()
+        torch.cuda.reset_peak_memory_stats()
+        out = engine_correct(self, errs, Es, Ds, **kw)
+        torch.cuda.synchronize()
+        top = torch.cuda.max_memory_allocated()
+        peak["bytes"] = max(peak["bytes"], top)
+        packed = packed_bytes(errs, kw["block"])
+        calls.append((packed, (top - base - (held() - kept)) / packed))
+        return out
+
+    call.peak = peak
+    return call, calls
+
+
+def largest_call_factor(calls):
+    """The loop memory factor of the call with the largest packed batch (a
+    call of a few pencils measures the allocator's rounding, not the loop)."""
+    return max(calls)[1] if calls else 0.0
+
+
+def packed_bytes(errs, block):
+    """Bytes of the packed (pencils, block) float32 batch of ``errs``."""
+    return 4 * block * sum(-(-e.numel() // block) for e in errs)
+
+
+def captured_bytes(captured):
+    """Device bytes of the tensors :func:`first_calls` keeps."""
+    import torch
+
+    return sum(v.numel() * v.element_size() for _ops, args, kw in captured.values()
+               for v in (*args, *kw.values()) if isinstance(v, torch.Tensor))
+
+
+def grad_check(dev, cfg, layers, tokens):
+    """Float32 gradients of ``cfg`` at ``layers`` deep (whisper: as many
+    encoder layers), full width, weights from seed 0, through the training
+    path (``xla_flash``; moe at :func:`no_drop`'s capacity) against
+    :func:`second_forward`'s (naive attention; mamba2: half the SSD chunk)
+    on one pipeline batch of ``tokens`` (rows, text tokens; a vlm's patches
+    before them): every leaf within 1e-4 of that
+    leaf's largest |g|, and the same check missing that bar with
+    FAULT_LEAF's gradient zeroed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.models.model import build_model
+
+    depth = {"n_layers": layers}
+    if cfg.family == "audio":
+        depth["encoder_layers"] = layers
+    cfg32 = dataclasses.replace(no_drop(cfg), dtype="float32", attention_impl="xla_flash", **depth)
+    params = build_model(cfg32, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    batch = pipeline_for(cfg32, vision_entries(cfg) + tokens[1], tokens[0], seed=1).batch_at(0)
+    named = dict(params.named_parameters())
+
+    def grads(c):
+        with torch.enable_grad():
+            loss = build_model(c, device=dev).loss(params, batch)
+            return float(loss.detach()), torch.autograd.grad(loss, list(named.values()))
+
+    t0 = time.perf_counter()
+    loss, got = grads(cfg32)
+    seconds = time.perf_counter() - t0
+    loss_other, want = grads(second_forward(cfg32))
+
+    def worst(gs):
+        out = 0.0
+        for g, w in zip(gs, want):
+            scale = float(w.abs().max())
+            diff = float((g - w).abs().max())
+            out = max(out, diff / scale if scale > 0 else (0.0 if diff == 0 else float("inf")))
+        return out
+
+    fault = next(i for i, k in enumerate(named) if k.startswith(FAULT_LEAF[cfg.family]))
+    clean = worst(got)
+    faulty = worst([torch.zeros_like(g) if i == fault else g for i, g in enumerate(got)])
+    result = {"check_layers": layers, "check_tokens": list(tokens), "leaves": len(named),
+              "check_params": sum(p.numel() for p in params.parameters()), "loss": loss,
+              "loss_other": loss_other, "other": "ssm_chunk // 2" if cfg.family == "ssm" else "naive attention",
+              "worst_leaf_rel": clean, "planted_fault": f"zeroed {list(named)[fault]}",
+              "faulty_worst_leaf_rel": faulty, "grad_seconds": seconds}
+    del params, named, got, want
+    torch.cuda.empty_cache()
+    require(clean <= 1e-4, f"{cfg.name}: a float32 gradient leaf differs from the second path's by {clean:.2e} "
+            "of its largest |g| > 1e-4")
+    require(faulty > 1e-4, f"{cfg.name}: the gradients with {result['planted_fault']} are within the bar")
+    return result
+
+
+def phase_train_family(dev, records, arch, cfg=None, tokens=(4, 2048), check_tokens=(2, 512),
+                       grad_Delta_rel=5e-5, steps=3, resume_layers=None):
+    """``Trainer`` on one of the moe, ssm, hybrid, vlm and audio archs at
+    full width (``cfg`` None: the published config at TRAIN_FAMILIES'
+    depth; bf16 blocks, float32 head, ``remat="dots"``, ``attention_impl=
+    "xla_flash"``), ``tokens`` a step, FFCz gradient compression at
+    ``grad_Delta_rel`` through a pallas engine (kernels 3p/4p; 1p/2p for a
+    leaf of odd length below the block), raw checkpoints:
+
+      grad_check  :func:`grad_check` at 2 layers (GRAD_CHECK_LAYERS)
+      train       ``steps`` steps: step seconds, tokens/s, peak device
+                  memory, ``compress_gradients`` seconds, the iteration
+                  histogram (more than half the pencils take 2 or more),
+                  the loop's peak memory over its packed batch (the largest
+                  call's: :func:`largest_call_factor`, on the steps before
+                  the capture), the kernels' launches; the last step keeps
+                  the first call of each kernel at each shape, held bitwise
+                  against the twins after the run
+      resume      at ``resume_layers`` deep (RESUME_LAYERS; None: ``cfg``'s
+                  depth), every width kept: 2 uninterrupted steps; a run with
+                  a checkpoint every step and a failure injected at step 1; a
+                  new Trainer that resumes there and ends at step 2 within
+                  rtol 1e-4 of the uninterrupted loss (save and restore
+                  seconds, state bytes)
+
+    A Trainer saves at the end of every ``train()``; the saves that nothing
+    reads (the timed run's, the uninterrupted and the resumed runs') are
+    skipped.  Returns the arch's summary."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.runtime import SimulatedFailure, Trainer, TrainerConfig
+
+    t_arch = time.perf_counter()
+    if cfg is None:
+        layers = TRAIN_FAMILIES[arch][0]
+        cfg = get_config(arch, **({} if layers is None else {"n_layers": layers}))
+    cfg = dataclasses.replace(cfg, remat="dots", attention_impl="xla_flash", compression=dataclasses.replace(
+        cfg.compression, grad_compression=True, grad_Delta_rel=grad_Delta_rel))
+    phase = dict(arch=cfg.name, family=cfg.family, layers=cfg.n_layers)
+    check = grad_check(dev, cfg, min(GRAD_CHECK_LAYERS.get(arch, 2), cfg.n_layers), check_tokens)
+    emit("train_family", **phase, part="grad_check", **check)
+
+    work = WORK_DIR / "train_family"
+    shutil.rmtree(work, ignore_errors=True)
+    engine = CorrectionEngine(fft_impl="pallas", device=dev)
+
+    def trainer(c, name, save=True, **kw):
+        run = TrainerConfig(seq_len=tokens[1], global_batch=tokens[0], ckpt_dir=str(work / name),
+                            **{"ckpt_every": 1, "log_every": 1, **kw})
+        t = Trainer(c, run, device=dev, engine=engine)
+        if not save:
+            t.ckpt.save = lambda *args, **kw: None
+        return t
+
+    # train: the timed steps, every wrapper on; the capture on the last step only
+    compress_s, hist = [], {}
+    compress, correct = steps_mod.compress_gradients, CorrectionEngine.correct
+    measured, calls = loop_memory(correct)
+
+    def timed(grads, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = compress(grads, **kw)
+        torch.cuda.synchronize()
+        compress_s.append(time.perf_counter() - t)
+        return out
+
+    def recording(self, *args, **kw):
+        out = measured(self, *args, **kw)
+        iters = out[-1].block_iterations.cpu().numpy()
+        for k, v in zip(*np.unique(iters, return_counts=True)):
+            hist[int(k)] = hist.get(int(k), 0) + int(v)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t = trainer(cfg, "timed", save=False)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in t.params.parameters())
+    steps_mod.compress_gradients, CorrectionEngine.correct = timed, recording
+    read = reset_launches()
+    try:
+        t.train(steps - 1)
+        peak = max(measured.peak["bytes"], torch.cuda.max_memory_allocated())
+        uncaptured = list(calls)
+        captured, undo = first_calls(*path_wrappers(even=True), *path_wrappers(even=False))
+        try:
+            t.train(1)
+        finally:
+            undo()
+    finally:
+        steps_mod.compress_gradients, CorrectionEngine.correct = compress, correct
+    counts = read()
+    step_s = [m["dt"] for m in t.metrics]
+    losses_t = [m["loss"] for m in t.metrics]
+    del t
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    without_counting(lambda: hold_at_path_shapes(f"train_family {cfg.name}", records, captured))
+    del captured
+    torch.cuda.empty_cache()
+    hold_s = time.perf_counter() - t0
+    median = float(np.median(step_s))
+    launched = {k: v for k, v in counts.items() if v}
+    factor = largest_call_factor(uncaptured)
+    emit("train_family", **phase, part="train", params=n_params, remat=cfg.remat,
+         attention_impl=cfg.attention_impl, tokens=list(tokens), grad_Delta_rel=grad_Delta_rel,
+         init_seconds=init_s, step_seconds=step_s, step_seconds_median=median,
+         tokens_per_s=tokens[0] * tokens[1] / median, compress_gradients_seconds=compress_s,
+         iterations_histogram=hist, loop_memory_factor=factor,
+         loop_calls_mb_and_factor=[[b / 1e6, f] for b, f in sorted(uncaptured, reverse=True)[:4]],
+         losses=losses_t, peak_memory_gb=peak / 1e9, launches=launched, hold_seconds=hold_s)
+    require(all(np.isfinite(losses_t)), f"train_family {arch}: a loss is not finite")
+    require(hist and sum(v for k, v in hist.items() if k >= 2) > sum(hist.values()) / 2,
+            f"train_family {arch}: grad_Delta_rel={grad_Delta_rel} leaves most pencils untouched: {hist}")
+    for k in ("fcube_rows", "scube_rows"):
+        if counts[k]:
+            launches_on_path(records, counts, f"train {cfg.name}", (k,))
+    launches_on_path(records, counts, f"train {cfg.name}")
+
+    # resume: checkpoint every step, a failure at step 1, a resumed Trainer
+    cut = cfg if resume_layers is None else dataclasses.replace(cfg, n_layers=resume_layers)
+    a = trainer(cut, "uninterrupted", save=False)
+    out_a = a.train(2)
+    losses_a = [m["loss"] for m in out_a["metrics"]]
+    state_bytes = sum(x.numel() * x.element_size() for x in tree.leaves(a.state()))
+    del a
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    b = trainer(cut, "resumed", inject_failure_at=1)
+    failed = False
+    try:
+        b.train(2)
+    except SimulatedFailure:
+        failed = True
+    losses_b = [m["loss"] for m in b.metrics]
+    del b
+    torch.cuda.empty_cache()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = trainer(cut, "resumed", save=False)
+    restore_s = time.perf_counter() - t0
+    start = c.start_step
+    out_c = c.train(2 - start)
+    losses_c = [m["loss"] for m in out_c["metrics"]]
+    del c
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    gap = abs(out_c["final_loss"] - out_a["final_loss"]) / abs(out_a["final_loss"])
+    emit("train_family", **phase, part="resume", resume_layers=cut.n_layers, state_bytes=state_bytes,
+         loss_uninterrupted=losses_a, loss_before_failure=losses_b, injected_failure=failed, resumed_at=start,
+         step_and_save_seconds=save_s, restore_seconds=restore_s, loss_resumed=losses_c,
+         final_loss_rel_gap=gap, arch_seconds=time.perf_counter() - t_arch)
+    require(all(np.isfinite(losses_a + losses_b + losses_c)), f"train_family {arch}: a loss is not finite")
+    require(failed, f"train_family {arch}: the injected failure did not happen")
+    require(start == 1, f"train_family {arch}: resumed at step {start}, want 1")
+    require(out_c["final_step"] == 2, f"train_family {arch}: the resumed run ended at {out_c['final_step']}")
+    require(gap <= 1e-4, f"train_family {arch}: resumed final loss differs from the uninterrupted run's by "
+            f"{gap:.2e} > 1e-4")
+    return {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params, "step_seconds_median": median,
+            "tokens_per_s": tokens[0] * tokens[1] / median, "peak_memory_gb": peak / 1e9,
+            "loop_memory_factor": factor, "grad_check_worst_leaf_rel": check["worst_leaf_rel"],
+            "launches": launched, "resume_layers": cut.n_layers, "resume_gap": gap,
+            "seconds": time.perf_counter() - t_arch}
+
 def launches_on_path(records, counts, path, kernels=("rfft_fwd_epilogue_rows", "unpack_sclip_rows")):
     """Add a path's launches of ``kernels`` to their summary records."""
     for k in kernels:
@@ -1630,10 +1968,56 @@ def first_calls(*groups):
     return captured, undo
 
 
+def row_slices(args, kw, rows, a, b):
+    """A per-pencil call's arguments cut to rows ``[a, b)``: every tensor of
+    ``rows`` rows sliced, a shape tuple starting with ``rows`` shortened."""
+    import torch
+
+    def cut(v):
+        if isinstance(v, torch.Tensor) and v.ndim and v.shape[0] == rows:
+            return v[a:b]
+        if isinstance(v, tuple) and v and v[0] == rows:
+            return (b - a,) + v[1:]
+        return v
+
+    return [cut(v) for v in args], {k: cut(v) for k, v in kw.items()}
+
+
+def per_pencil(args, kw):
+    """True for a call in the kernels' per-pencil mode (its rows
+    independent): ``per_row=True``, or a bound of one value a row."""
+    from repro_torch.kernels.build import is_row_bound
+
+    return bool(kw.get("per_row")) or any(is_row_bound(v, args[0].shape) for v in args[1:])
+
+
+def plain_equals(ops, name, args, kw, got, chunk=1 << 26):
+    """The plain twin of ``ops.<name>`` on ``args`` equals ``got`` bitwise;
+    a per-pencil call is compared in blocks of rows (about ``chunk`` values
+    of its first argument each), so the twin's temporaries stay small at a
+    gradient's billion values."""
+    import torch
+
+    plain = getattr(ops, name.replace("_fused", "_plain"))
+    rows = args[0].shape[0]
+    if not per_pencil(args, kw) or args[0].numel() <= chunk:
+        want = plain(*[v.clone() if isinstance(v, torch.Tensor) else v for v in args], **kw)
+        return len(got) == len(want) and all(same(g, w) for g, w in zip(got, want))
+    step = max(1, chunk * rows // args[0].numel())
+    for a in range(0, rows, step):
+        b = min(rows, a + step)
+        sliced, sliced_kw = row_slices(args, kw, rows, a, b)
+        want = plain(*sliced, **sliced_kw)
+        if len(got) != len(want) or not all(same(g[a:b], w) for g, w in zip(got, want)):
+            return False
+    return True
+
+
 def hold_at_path_shapes(path, records, captured):
     """Replay each call captured by :func:`first_calls` on the kernel and on
-    its plain twin: every output bitwise equal.  The replay's launches are
-    not the path's: call this outside the path's count."""
+    its plain twin (:func:`plain_equals`): every output bitwise equal.  The
+    replay's launches are not the path's: call this outside the path's
+    count."""
     import torch
 
     def clone(v):
@@ -1644,8 +2028,8 @@ def hold_at_path_shapes(path, records, captured):
         read = reset_launches()
         got = getattr(ops, name)(*map(clone, args), **kw)
         launched = [k for k, v in read().items() if v]
-        want = getattr(ops, name.replace("_fused", "_plain"))(*map(clone, args), **kw)
-        bitwise = len(got) == len(want) and all(same(g, w) for g, w in zip(got, want))
+        bitwise = plain_equals(ops, name, args, kw, got)
+        del got
         kernel = launched[0] if len(launched) == 1 else None
         checks.append({"kernel": kernel, "shape": list(shape), "bitwise": bitwise})
         require(kernel is not None, f"{path}: {name} at {shape} launched {launched}, want one kernel")
@@ -2513,6 +2897,34 @@ def decode_sweep() -> int:
     return 0
 
 
+def train_families(dev, records):
+    """Phase train_family on each arch of TRAIN_FAMILIES, then its summary."""
+    import torch
+
+    summaries = []
+    for arch in TRAIN_FAMILIES:
+        summaries.append(phase_train_family(dev, records, arch, tokens=TRAIN_FAMILIES[arch][1],
+                                            resume_layers=RESUME_LAYERS[arch]))
+        torch.cuda.empty_cache()
+    emit("train_family", part="summary", families=summaries, seconds=sum(s["seconds"] for s in summaries))
+
+
+def train_families_only() -> int:
+    """Build the kernels and run phase train_family alone (its gates too)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("device", nvidia_smi=nvidia_smi_line())
+    emit("build", seconds=build.build_all())
+    records = {k: {"name": k, "launches": 0} for k in KERNEL_ROWS}
+    train_families("cuda", records)
+    emit("train_family", part="launches", launches={k: r.get("launches_by_path", {}) for k, r in records.items()})
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
@@ -2528,8 +2940,11 @@ def main() -> int:
         return compare_lm(Path(sys.argv[2]))
     if sys.argv[1:] == ["--decode-sweep"]:
         return decode_sweep()
+    if sys.argv[1:] == ["--train-families"]:
+        return train_families_only()
     if sys.argv[1:]:
-        print("usage: chip_smoke.py [--compare-lm OTHER_CHECKOUT | --decode-sweep]", file=sys.stderr)
+        print("usage: chip_smoke.py [--compare-lm OTHER_CHECKOUT | --decode-sweep | --train-families]",
+              file=sys.stderr)
         return 2
 
     from repro_torch.compressors import get_compressor
@@ -2629,6 +3044,7 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     phase_checkpoint(dev, records)
+    train_families(dev, records)
 
     # the service path: temporal streams (field frames, EEG pencils), the
     # FFCz service without and with injected faults, a recovered session

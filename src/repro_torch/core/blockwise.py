@@ -20,8 +20,11 @@ The reference's ``sharded`` backend (the batched program under
 ``shard_map``) is ROADMAP Queue 1 slice 5 and raises here.
 
 Buffers: JAX donates ``correct_batch``'s inputs so each corrected output can
-alias its input.  The port donates nothing: inputs are read, never written,
-and every output is a fresh tensor.
+alias its input.  The port donates nothing of the caller's: inputs are read,
+never written, and every output is a fresh tensor.  The packed buffer is the
+port's own, so the batched loop takes it as its ``eps`` (``donate``); each
+per-tensor tiling is released once it has been packed, and without
+``return_edits`` the loop keeps no edit streams.
 """
 
 from __future__ import annotations
@@ -106,12 +109,15 @@ def _check_backend(backend: str) -> None:
         raise ValueError(f"the packed path runs backend 'batched' (or 'sharded'), got {backend!r}")
 
 
-def _pocs_batched(packed, E_blk, D_blk, max_iters, fft_impl="xla", warm=None):
+def _pocs_batched(packed, E_blk, D_blk, max_iters, fft_impl="xla", warm=None, donate=False, keep_edits=True):
     """The batched loop over a packed ``(B, block)`` buffer (the batched
     backend); ``warm`` is an optional packed ``(B, block//2+1)`` complex
-    buffer of per-block warm-start spectra aligned with ``packed``'s rows."""
+    buffer of per-block warm-start spectra aligned with ``packed``'s rows;
+    with ``donate`` the loop writes its ``eps`` into ``packed``, without
+    ``keep_edits`` it accumulates no edit streams."""
     return alternating_projection_batched(
-        packed, E_blk, D_blk, max_iters=max_iters, fft_impl=fft_impl, warm_freq=warm
+        packed, E_blk, D_blk, max_iters=max_iters, fft_impl=fft_impl, warm_freq=warm, donate=donate,
+        keep_edits=keep_edits,
     )
 
 
@@ -147,22 +153,25 @@ def _correct_batch_core(tensors, E_arr, Delta_arr, block, max_iters, return_edit
         pads.append(pad)
         counts.append(tiles.shape[0])
     packed = torch.cat(tiles_list, dim=0)
+    del tiles_list, tiles
     seg = _segments(counts, packed.device)
     warm_packed = None
     if warm is not None:
         warm_packed = torch.cat([torch.as_tensor(w, device=packed.device).to(torch.complex64)
                                  for w in warm], dim=0)
-    res = _pocs_batched(packed, E_arr[seg], Delta_arr[seg], max_iters, fft_impl, warm_packed)
-    corrected, edits = [], []
-    offset = 0
-    for t, pad, nb in zip(tensors, pads, counts):
-        sl = slice(offset, offset + nb)
-        if return_corrected:
-            corrected.append(untile_1d(res.eps[sl], t.shape, pad).to(t.dtype))
-        if return_edits:
-            edits.append((res.spat_edits[sl], res.freq_edits[sl]))
-        offset += nb
-    return corrected, edits, _segment_stats(res, seg, len(tensors))
+    res = _pocs_batched(packed, E_arr[seg], Delta_arr[seg], max_iters, fft_impl, warm_packed, donate=True,
+                        keep_edits=return_edits)
+    del packed, warm_packed
+    stats = _segment_stats(res, seg, len(tensors))
+    eps, edits, offsets = res.eps, [], np.cumsum((0,) + tuple(counts))
+    if return_edits:
+        edits = [(res.spat_edits[a:b], res.freq_edits[a:b]) for a, b in zip(offsets[:-1], offsets[1:])]
+    del res
+    corrected = []
+    if return_corrected:
+        corrected = [untile_1d(eps[a:b], t.shape, pad).to(t.dtype)
+                     for t, pad, a, b in zip(tensors, pads, offsets[:-1], offsets[1:])]
+    return corrected, edits, stats
 
 
 def batch_layout(sizes: Sequence[int], block: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:

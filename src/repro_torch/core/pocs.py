@@ -339,6 +339,8 @@ def alternating_projection_batched(
     max_iters: int = 1000,
     fft_impl: str = "xla",
     warm_freq: Optional[torch.Tensor] = None,
+    donate: bool = False,
+    keep_edits: bool = True,
 ) -> AlternatingProjectionResult:
     """Alg. 1 on every row of a ``(B, block)`` batch of independent pencils.
 
@@ -356,6 +358,16 @@ def alternating_projection_batched(
     static fallback).  Returns an :class:`AlternatingProjectionResult` whose
     ``iterations``, ``converged`` and ``final_violations`` are ``(B,)``
     tensors (int32, bool, int32) on ``eps0``'s device.
+
+    Memory: each temporary is released once it has been read, and the
+    loop's state (``eps``, the edits) is updated in place on the stepping
+    rows, so at most seven batch-sized buffers are alive at once (the
+    f-clip's input and three outputs beside the state).  With ``donate``
+    the loop owns ``eps0`` and writes ``eps`` into it (the returned ``eps``
+    is ``eps0``); otherwise ``eps0`` is not written.  Without
+    ``keep_edits`` the edit streams, which ``eps`` never reads, are not
+    accumulated (``spat_edits`` and ``freq_edits`` are ``None``): five
+    buffers at most.
     """
     if fft_impl not in _FFT_IMPLS:
         raise ValueError(f"fft_impl must be one of {_FFT_IMPLS}, got {fft_impl!r}")
@@ -397,13 +409,16 @@ def alternating_projection_batched(
         return viol.to(torch.int32)
 
     if warm_freq is None:
-        eps, spat = eps0, torch.zeros_like(eps0)
-        freq = torch.zeros((rows, h), dtype=torch.complex64, device=dev)
+        eps = eps0 if donate else eps0.clone()
+        spat = torch.zeros_like(eps0) if keep_edits else None
+        freq = torch.zeros((rows, h), dtype=torch.complex64, device=dev) if keep_edits else None
     else:
         freq = torch.as_tensor(warm_freq, device=dev).to(torch.complex64).clone()
         if tuple(freq.shape) != (rows, h):
             raise ValueError(f"warm_freq must have shape {(rows, h)}, got {tuple(freq.shape)}")
         eps, spat = project_scube(eps0 + inv(freq), E)
+        if not keep_edits:
+            spat = freq = None
 
     iterations = torch.zeros(rows, dtype=torch.int32, device=dev)
     done = torch.zeros(rows, dtype=torch.bool, device=dev)
@@ -411,11 +426,15 @@ def alternating_projection_batched(
     active = torch.ones(rows, dtype=torch.bool, device=dev)
     it, stepping_any = 0, rows > 0
     while stepping_any and it < max_iters:
+        # every row steps (frozen rows' results are discarded); the stepping
+        # rows' updates go into the state in place, each temporary is
+        # dropped once read: the sums are the reference's element-wise ones
         delta = fwd(eps)
         if pallas_fused:
-            _clipped, f_disp, Z, viol = rfft_ops.fwd_epilogue_fused(
+            clipped, f_disp, Z, viol = rfft_ops.fwd_epilogue_fused(
                 delta, Delta, weighted=True, check_tol=_CHECK_TOL, per_row=True
             )
+            clipped = None  # the fused path reads Z instead
         elif use_kernels:
             clipped, f_disp, viol = fcube_ops.project_fcube_fused(
                 delta, Delta, n_last=n, check_tol=_CHECK_TOL, per_row=True
@@ -423,21 +442,33 @@ def alternating_projection_batched(
         else:
             clipped, f_disp = project_fcube(delta, Delta)
             viol = count_violations(delta)
+        del delta
         done_now = viol == 0
         stepping = active & ~done_now
         stepping_any = bool(stepping.any())  # the host waits for the device here only
         if stepping_any:
+            col = stepping[:, None]
+            if keep_edits:
+                torch.where(col, f_disp.add_(freq), freq, out=freq)
+            del f_disp
             if pallas_fused:
                 z = torch.fft.ifft(Z, dim=-1).contiguous()
+                del Z
                 eps_s, s_disp = rfft_ops.unpack_sclip_fused(z, E, (rows, n))
-            elif use_kernels:
-                eps_s, s_disp = scube_ops.project_scube_fused(inv(clipped), E)
+                del z
             else:
-                eps_s, s_disp = project_scube(inv(clipped), E)
-            col = stepping[:, None]
-            freq = torch.where(col, freq + f_disp, freq)
-            spat = torch.where(col, spat + s_disp, spat)
-            eps = torch.where(col, eps_s, eps)
+                x = inv(clipped)
+                del clipped
+                if use_kernels:
+                    eps_s, s_disp = scube_ops.project_scube_fused(x, E)
+                else:
+                    eps_s, s_disp = project_scube(x, E)
+                del x
+            if keep_edits:
+                torch.where(col, s_disp.add_(spat), spat, out=spat)
+            del s_disp
+            torch.where(col, eps_s, eps, out=eps)
+            del eps_s
         viol_state = torch.where(active, viol, viol_state)
         done = done | (active & done_now)
         iterations += active.to(torch.int32)

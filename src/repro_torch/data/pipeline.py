@@ -70,10 +70,17 @@ class TokenPipeline:
 def pipeline_for(cfg, seq_len: int, global_batch: int, seed: int = 0, n_shards: int = 1,
                  shard: int = 0) -> TokenPipeline:
     """The pipeline of ``cfg``'s family; a vlm's ``seq_len`` counts its
-    patches, so its batches carry ``seq_len - vision_tokens`` tokens."""
+    patches, so its batches carry ``seq_len - vision_tokens`` tokens, and a
+    ``seq_len`` that leaves no token (``<= vision_tokens``) raises
+    ``ValueError`` (the reference's pipeline would train on an empty token
+    row, a NaN loss)."""
     kw = dict(vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch, seed=seed, n_shards=n_shards,
               shard=shard)
     if cfg.family == "vlm":
+        if seq_len <= cfg.vision_tokens:
+            raise ValueError(
+                f"a vlm's seq_len counts its {cfg.vision_tokens} vision positions: seq_len {seq_len} leaves "
+                f"no token to train on; pass seq_len > vision_tokens ({cfg.vision_tokens})")
         kw.update(vision_tokens=cfg.vision_tokens, vision_dim=cfg.vision_dim, seq_len=seq_len - cfg.vision_tokens)
     if cfg.family == "audio":
         kw.update(audio_frames=cfg.encoder_seq, audio_dim=cfg.d_model)

@@ -5,15 +5,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --preset full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-mistral-7b --preset full \
-        --kv-compression --max-batch 2
+        --kv-compression
 
 ``--arch`` takes every arch of the registry (dense, moe, ssm, hybrid, vlm,
 audio); ``--preset full`` is the published config with random weights from
 a seed, ``smoke`` the reduced one.  The vlm and audio requests carry zero
-patches or frames (the engine's stubs); a batch of 4 llava rows with KV
-compression does not fit an 80 GB card beside the model (its 2880 vision
-entries a row), 2 do.  ``--device`` defaults to ``cuda`` (the port does not
-fall back to the CPU).
+patches or frames (the engine's stubs).  ``--device`` defaults to ``cuda``
+(the port does not fall back to the CPU).
 """
 
 from __future__ import annotations

@@ -4,10 +4,19 @@
 opt_state, batch) -> (params, opt_state, loss)``: the loss and its gradients
 by autograd, FFCz gradient compression when the config asks for it, then
 the AdamW update written into the model's parameters.  ``params`` is the
-bundle's ``DenseLM``, ``opt_state`` AdamW's state over its ``state_dict``
-names.  The gradients are compressed in the reference's tree layout (each
-layer tensor stacked on a layer axis), so every tensor's E and Delta and its
-pencils are the reference's.
+bundle's model (any family's :class:`~repro_torch.models.model.LM`),
+``opt_state`` AdamW's state over its ``state_dict`` names.  Autograd runs
+over every parameter the loss reaches: zamba2's shared block sums the
+gradients of its calls, the vlm's projector trains (its patches are inputs),
+whisper's encoder and decoder train, and the MoE router trains through the
+combine weights (a pair dropped at capacity contributes nothing, so it gets
+no gradient).  The gradients are compressed in the reference's tree layout
+(each stacked subtree stacked on its leading axes), so every tensor's E and
+Delta and its pencils are the reference's; ``engine`` is the
+:class:`~repro_torch.core.engine.CorrectionEngine` that corrects them
+(``None``: the device's default engine, whose ``fft_impl`` is the
+reference's ``"xla"``; pass ``CorrectionEngine(fft_impl="pallas")`` for the
+per-pencil kernels).
 
 ``make_step`` (step functions with their shardings over a mesh) needs a
 mesh and is not ported (ROADMAP.md Queue 1, slice 6).
@@ -23,7 +32,7 @@ from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.grad_compress import compress_gradients
 
 
-def make_train_step(bundle: ModelBundle, optimizer: AdamW):
+def make_train_step(bundle: ModelBundle, optimizer: AdamW, engine=None):
     cfg = bundle.cfg
     comp = cfg.compression
 
@@ -33,13 +42,18 @@ def make_train_step(bundle: ModelBundle, optimizer: AdamW):
             loss = bundle.loss(params, batch)
             grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
         if comp.grad_compression:
+            # the reference's layout stacks copies: the port's go first
+            stacked = lm_params_to_reference(grads, cfg)
+            del grads
             grads = lm_params_from_reference(compress_gradients(
-                lm_params_to_reference(grads, cfg),
+                stacked,
                 bits=comp.grad_bits,
                 E_rel=comp.grad_E_rel,
                 Delta_rel=comp.grad_Delta_rel,
                 block=comp.grad_block,
+                engine=engine,
             ), cfg)
+            del stacked
         new_params, opt_state = optimizer.update(grads, opt_state, {k: p.detach() for k, p in named.items()})
         with torch.no_grad():
             for k, p in named.items():

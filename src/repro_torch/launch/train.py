@@ -4,8 +4,18 @@
         --steps 100 --ckpt-dir <dir> --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --preset full \\
         --seq-len 2048 --global-batch 4 --steps 10 --grad-compression
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llava-next-mistral-7b --preset full \\
+        --n-layers 4 --seq-len 4928 --global-batch 2 --steps 3 --grad-compression
 
-``--device`` defaults to ``cuda`` (the port does not fall back to the CPU).
+Every arch of ``repro_torch.configs.ARCH_IDS`` trains (all six families).  A
+vlm's ``--seq-len`` counts its ``vision_tokens`` patch positions and must
+exceed them (SMOKE llava has 16, the full one 2880).  ``--n-layers`` cuts
+the depth of a full-width model so its training state fits one card;
+llama4-maverick trains at SMOKE only (its full width needs the sharded
+port).  The FFCz corrections of the gradients and checkpoints run through
+a ``fft_impl="pallas"`` engine: the per-pencil CUDA kernels (their plain
+twins on the CPU).  ``--device`` defaults to ``cuda`` (the port does not
+fall back to the CPU).
 Restart-from-checkpoint, straggler tracking, and FFCz gradient / checkpoint
 compression are wired through the same Trainer the tests use.
 """
@@ -18,6 +28,7 @@ import os
 import tempfile
 
 from repro_torch.configs import CompressionConfig, get_config, get_smoke_config
+from repro_torch.core.engine import CorrectionEngine
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 
@@ -33,10 +44,12 @@ def main(argv=None):
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--ckpt-compression", action="store_true")
     ap.add_argument("--inject-failure-at", type=int, default=None)
+    ap.add_argument("--n-layers", type=int, default=None, help="cut the depth (widths stay the preset's)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch) if args.preset == "full" else get_smoke_config(args.arch)
+    depth = {} if args.n_layers is None else {"n_layers": args.n_layers}
+    cfg = get_config(args.arch, **depth) if args.preset == "full" else get_smoke_config(args.arch, **depth)
     cfg = dataclasses.replace(
         cfg,
         compression=CompressionConfig(
@@ -48,7 +61,7 @@ def main(argv=None):
         seq_len=args.seq_len, global_batch=args.global_batch, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, inject_failure_at=args.inject_failure_at,
     )
-    tr = Trainer(cfg, run, device=args.device)
+    tr = Trainer(cfg, run, device=args.device, engine=CorrectionEngine(fft_impl="pallas", device=args.device))
     out = tr.train(args.steps)
     print(f"done: step={out['final_step']} loss={out['final_loss']:.4f} "
           f"stragglers={len(out['straggler_events'])}")

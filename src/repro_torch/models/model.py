@@ -112,6 +112,17 @@ def build_model(cfg: ArchConfig, device=None) -> ModelBundle:
     return builders[cfg.family](cfg, resolve_device(device))
 
 
+def lm_class(cfg: ArchConfig) -> type:
+    """The :class:`LM` subclass that :func:`build_model` builds for ``cfg``'s
+    family; ``lm_class(cfg)(cfg, device="meta")`` is a model's skeleton
+    (shapes and dtypes, no memory)."""
+    classes = {"dense": DenseLM, "vlm": VLMLM, "moe": MoELM, "ssm": SSMLM, "hybrid": ZambaLM,
+               "audio": WhisperLM}
+    if cfg.family not in classes:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return classes[cfg.family]
+
+
 # ---------------------------------------------------------------------------
 # shared pieces
 
@@ -407,8 +418,10 @@ def _lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
 
 
-def _bundle(cfg: ArchConfig, device: torch.device, lm_class, init_cache: Callable) -> ModelBundle:
-    """The family-independent functions around ``lm_class`` and its cache."""
+def _bundle(cfg: ArchConfig, device: torch.device, init_cache: Callable) -> ModelBundle:
+    """The family-independent functions around the family's :func:`lm_class`
+    and its cache."""
+    model_class = lm_class(cfg)
 
     def tokens_of(batch) -> torch.Tensor:
         return torch.as_tensor(batch["tokens"], device=device).to(torch.int64)
@@ -421,10 +434,10 @@ def _bundle(cfg: ArchConfig, device: torch.device, lm_class, init_cache: Callabl
     def init(gen: torch.Generator) -> LM:
         if gen.device.type != device.type:
             raise ValueError(f"generator is on {gen.device}, the model on {device}")
-        return lm_class(cfg, device).init_(gen, cfg)
+        return model_class(cfg, device).init_(gen, cfg)
 
     def load(state_dict: Mapping[str, torch.Tensor]) -> LM:
-        params = lm_class(cfg, device="meta")
+        params = model_class(cfg, device="meta")
         want = params.state_dict()
         sd = {k: torch.as_tensor(v).to(device, want[k].dtype if k in want else None)
               for k, v in state_dict.items()}
@@ -469,7 +482,7 @@ def _build_dense(cfg: ArchConfig, device: torch.device) -> ModelBundle:
     def init_cache(batch_size: int, max_len: int) -> dict:
         return {**_stacked(_kv(cfg, device, batch_size, max_len), cfg.n_layers), "pos": 0}
 
-    return _bundle(cfg, device, VLMLM if cfg.family == "vlm" else DenseLM, init_cache)
+    return _bundle(cfg, device, init_cache)
 
 
 def _kv(cfg: ArchConfig, device, batch_size: int, max_len: int) -> Callable:
@@ -487,7 +500,7 @@ def _build_moe(cfg: ArchConfig, device: torch.device) -> ModelBundle:
             c["dense"] = _stacked(kv, n_groups, cfg.moe_every - 1)
         return c
 
-    return _bundle(cfg, device, MoELM, init_cache)
+    return _bundle(cfg, device, init_cache)
 
 
 def _build_ssm(cfg: ArchConfig, device: torch.device) -> ModelBundle:
@@ -495,7 +508,7 @@ def _build_ssm(cfg: ArchConfig, device: torch.device) -> ModelBundle:
         del max_len  # O(1) state: what lets the ssm family decode the long cells
         return _stacked(lambda: init_mamba_cache(batch_size, cfg, dtype_of(cfg.dtype), device), cfg.n_layers)
 
-    return _bundle(cfg, device, SSMLM, init_cache)
+    return _bundle(cfg, device, init_cache)
 
 
 def _build_zamba(cfg: ArchConfig, device: torch.device) -> ModelBundle:
@@ -509,7 +522,7 @@ def _build_zamba(cfg: ArchConfig, device: torch.device) -> ModelBundle:
             c["tail"] = _stacked(mc, tail)
         return c
 
-    return _bundle(cfg, device, ZambaLM, init_cache)
+    return _bundle(cfg, device, init_cache)
 
 
 def _build_whisper(cfg: ArchConfig, device: torch.device) -> ModelBundle:
@@ -519,4 +532,4 @@ def _build_whisper(cfg: ArchConfig, device: torch.device) -> ModelBundle:
         return {"self": {**_stacked(_kv(cfg, device, batch_size, max_len), cfg.n_layers), "pos": 0},
                 "cross": cross}
 
-    return _bundle(cfg, device, WhisperLM, init_cache)
+    return _bundle(cfg, device, init_cache)

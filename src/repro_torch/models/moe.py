@@ -15,16 +15,22 @@ is sliced off, so no index is ever wrapped or clipped onto a real slot.
 Every kept pair owns its slot, so the dispatch buffer and the per-slot
 weights are written by a plain scatter: the values of the reference's add
 onto zeros (the dropped pairs all write zero into the spare).  Only the
-combine, where a token's kept pairs meet, accumulates.
+combine, where a token's kept pairs meet, accumulates, and it does so
+token-side: each (token, choice) pair gathers its slot's weighted row (a
+dropped pair a zero row) and a token's ``top_k`` rows are summed, as are
+its router weights for the renormalisation.  Gathers and sums add in a
+fixed order on the card, where a scatter-add (``index_add``) adds float32
+in the order its atomics land; so a forward, its gradients and a resumed
+training run repeat bitwise.
 The expert products are ``einsum``s, as in the reference (no kernel there
 either).  The port runs on one device: the reference's expert-parallel
 sharding constraints have no counterpart, and a non-empty ``mesh_axes``
 raises ``NotImplementedError``.
 
 Routing ties: ``torch.topk`` and ``jax.lax.top_k`` may order equal router
-logits differently; on inputs without ties the two route alike.  On the
-card ``index_add`` accumulates float32 in any order, so the renormalisation
-and the combine are equal to the reference's within rounding, not bitwise.
+logits differently; on inputs without ties the two route alike.  The
+renormalisation and the combine sum a token's pairs in choice order, the
+reference's scatter-add in its own: equal within rounding, not bitwise.
 """
 
 from __future__ import annotations
@@ -109,7 +115,8 @@ class Routing:
     ``sorted_w[i]``; it is kept when ``keep[i]``, in slot ``(slot_e[i],
     slot_c[i])`` of the ``(E_pad, C)`` buffer, and a dropped pair's slot is
     the spare ``(E_pad, C)``.  ``tok_slot (E_pad, C)`` is the token in each
-    slot, ``T`` for an empty one."""
+    slot, ``T`` for an empty one; ``pair_of (T, top_k)`` is the sorted
+    position of each token's choices, in choice order."""
 
     capacity: int
     sorted_t: torch.Tensor
@@ -118,6 +125,7 @@ class Routing:
     slot_e: torch.Tensor
     slot_c: torch.Tensor
     tok_slot: torch.Tensor
+    pair_of: torch.Tensor
 
 
 def route(router: torch.Tensor, tokens: torch.Tensor, *, top_k: int, capacity_factor: float,
@@ -144,7 +152,8 @@ def route(router: torch.Tensor, tokens: torch.Tensor, *, top_k: int, capacity_fa
     slot_c = torch.where(keep, pos_in_e, C)
     tok_slot = torch.full((e_pad + 1, C + 1), T, dtype=torch.int64, device=dev)
     tok_slot = tok_slot.index_put((slot_e, slot_c), torch.where(keep, sorted_t, T))[:e_pad, :C]
-    return Routing(C, sorted_t, sorted_w, keep, slot_e, slot_c, tok_slot)
+    pair_of = torch.empty_like(order).index_put((order,), torch.arange(T * top_k, device=dev)).reshape(T, top_k)
+    return Routing(C, sorted_t, sorted_w, keep, slot_e, slot_c, tok_slot, pair_of)
 
 
 def moe_apply(params: Mapping, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
@@ -168,17 +177,19 @@ def moe_apply(params: Mapping, x: torch.Tensor, *, top_k: int, capacity_factor: 
     u = torch.einsum("ecd,edf->ecf", buf, params["w_up"])
     eout = torch.einsum("ecf,efd->ecd", g * u, params["w_down"])  # (E_pad, C, d)
 
-    # combine, expert-side: per-slot renormalised weights, then scatter-add
-    # every slot's weighted row into its token's output row
+    # combine: per-slot renormalised weights (a token's kept weights summed
+    # over its choices), every slot's row weighted, then each token's
+    # choices gathered from their slots (a dropped pair from the zero row
+    # past the last slot) and summed
     w_kept = torch.where(keep, r.sorted_w, 0.0)
-    denom = torch.zeros((T,), dtype=torch.float32, device=x.device).index_add(0, r.sorted_t, w_kept)
+    denom = torch.sum(w_kept[r.pair_of], dim=1)
     w_norm = w_kept / torch.clamp(denom[r.sorted_t], min=1e-9)
     w_slot = torch.zeros((e_pad + 1, C + 1), dtype=torch.float32, device=x.device)
     w_slot = w_slot.index_put(slots, torch.where(keep, w_norm, 0.0))[:e_pad, :C]
     contrib = eout * w_slot[..., None].to(eout.dtype)  # (E_pad, C, d)
-    out = torch.zeros((T + 1, d), dtype=torch.float32, device=x.device)  # row T: empty slots
-    out = out.index_add(0, r.tok_slot.reshape(-1), contrib.reshape(-1, d).to(torch.float32))[:T]
-    out = out.to(x.dtype)
+    rows = torch.cat([contrib.reshape(-1, d).to(torch.float32), contrib.new_zeros((1, d), dtype=torch.float32)])
+    slot_row = torch.where(keep, r.slot_e * C + r.slot_c, e_pad * C)
+    out = torch.sum(rows[slot_row[r.pair_of]], dim=1).to(x.dtype)  # (T, d)
 
     if "shared" in params:
         out = out + swiglu(params["shared"]["w_gu"], params["shared"]["w_down"], tokens)

@@ -14,10 +14,14 @@
     restart finds does not depend on thread timing); a new Trainer on the
     same directory resumes.
 
-``device=None`` means ``"cuda"`` (raises without a card).  A device mesh is
-not ported: ``mesh`` must be ``None`` (ROADMAP.md Queue 1, item 5d).  Only
-the dense family trains: the moe, ssm, hybrid, vlm and audio models serve
-and score in the port but their training is ROADMAP.md Queue 1, item 5c.
+Every family trains (dense, moe, ssm, hybrid, vlm, audio): the step is
+autograd over the family's parameters (``launch/steps.make_train_step``).
+``device=None`` means ``"cuda"`` (raises without a card).  ``engine`` is the
+:class:`~repro_torch.core.engine.CorrectionEngine` of the trainer's FFCz
+stages, gradient compression and the checkpoint codec (``None``: the
+device's default engine, ``fft_impl="xla"`` as the reference's; a
+``"pallas"`` engine runs the per-pencil kernels).  A device mesh is not
+ported: ``mesh`` must be ``None`` (ROADMAP.md Queue 1, item 5d).
 """
 
 from __future__ import annotations
@@ -40,10 +44,10 @@ from repro_torch.convert import (
     opt_state_from_reference,
     opt_state_to_reference,
 )
-from repro_torch.core.engine import default_engine
+from repro_torch.core.engine import CorrectionEngine, default_engine
 from repro_torch.data.pipeline import pipeline_for
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models.model import DenseLM, build_model
+from repro_torch.models.model import build_model, lm_class
 from repro_torch.optim.adamw import AdamW
 
 
@@ -67,14 +71,10 @@ class SimulatedFailure(RuntimeError):
 
 class Trainer:
     def __init__(self, arch_cfg: ArchConfig, run_cfg: TrainerConfig, mesh=None,
-                 optimizer: Optional[AdamW] = None, device=None):
+                 optimizer: Optional[AdamW] = None, device=None, engine: Optional[CorrectionEngine] = None):
         if mesh is not None:
             raise NotImplementedError(
                 "training over a device mesh is not ported to repro_torch yet (ROADMAP.md Queue 1, item 5d)"
-            )
-        if arch_cfg.family != "dense":
-            raise NotImplementedError(
-                f"training the {arch_cfg.family!r} family is not ported yet (ROADMAP.md Queue 1, item 5c)"
             )
         self.cfg = arch_cfg
         self.run = run_cfg
@@ -87,17 +87,17 @@ class Trainer:
             enabled=arch_cfg.compression.checkpoint_compression,
             E_rel=arch_cfg.compression.ckpt_E_rel,
             Delta_rel=arch_cfg.compression.ckpt_Delta_rel,
-            engine=default_engine(self.device),
+            engine=engine or default_engine(self.device),
         )
         self.ckpt = CheckpointManager(run_cfg.ckpt_dir, codec=codec, keep=run_cfg.keep)
         self.step_times: List[float] = []
         self.straggler_events: List[Dict[str, Any]] = []
         self.metrics: List[Dict[str, Any]] = []
-        self._step = make_train_step(self.bundle, self.optimizer)
+        self._step = make_train_step(self.bundle, self.optimizer, engine)
 
         # restart-from-latest (fault tolerance); the structure to restore
-        # into is built on the meta device (shapes and dtypes, no memory)
-        meta = DenseLM(arch_cfg, device="meta").state_dict()
+        # into is the family's model on the meta device (no memory)
+        meta = lm_class(arch_cfg)(arch_cfg, device="meta").state_dict()
         like = (lm_params_to_reference(meta, arch_cfg),
                 opt_state_to_reference(self.optimizer.init(meta), arch_cfg))
         restored = self.ckpt.restore_latest(like)

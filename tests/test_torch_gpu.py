@@ -879,12 +879,9 @@ def test_serve_cli_serves_a_new_family_at_full_width(arch):
     _cuda()
     torch.cuda.empty_cache()  # the card's memory to the served model, not to earlier tests' cache
     root = pathlib.Path(__file__).resolve().parents[1]
-    # a batch of 4 llava rows is ~0.8 G KV values (2880 vision entries a
-    # row): its compression's temporaries do not fit beside the 15 GB model
-    batch = ["--max-batch", "2"] if arch == "llava-next-mistral-7b" else []
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--preset", "full",
-         "--requests", "4", "--max-new-tokens", "4", "--kv-compression", *batch],
+         "--requests", "4", "--max-new-tokens", "4", "--kv-compression"],
         capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=str(root / "src")), cwd=root,
         timeout=900)
     assert out.returncode == 0, out.stderr
@@ -956,3 +953,41 @@ def test_whisper_forward_on_the_card():
     loss, launches = _scored(cfg, params16, batch)
     other, _ = _scored(dataclasses.replace(cfg, attention_impl="naive"), params16, batch)
     assert launches == cfg.n_layers and np.isfinite(loss) and abs(loss - other) <= 1e-3 * abs(other)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-2.7b", "zamba2-7b", "llava-next-mistral-7b",
+                                  "whisper-tiny"])
+def test_one_training_step_per_family_on_the_card(arch, tmp_path):
+    """A SMOKE ``Trainer`` of each new family takes one step on the card
+    from the CPU trainer's initial parameters, with FFCz gradient compression
+    through a pallas engine (grad_Delta_rel 5e-5, so the correction acts):
+    the loss within rtol 1e-5 of the CPU step's (float32; the card's
+    products sum in another order), the per-pencil kernels launched: 3p/4p
+    for the even pencil lengths, 1p/2p only where a leaf shorter than the
+    4096 block keeps an odd length of its own (no leaf of these five does)."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import CompressionConfig, get_smoke_config
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    dev = _cuda()
+    comp = CompressionConfig(grad_compression=True, grad_Delta_rel=5e-5)
+    cfg = dataclasses.replace(get_smoke_config(arch), compression=comp)
+    run = dict(seq_len=32, global_batch=2, ckpt_every=100, ckpt_async=False)
+    cpu = Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path / "cpu"), **run), device="cpu")
+    card = Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path / "card"), **run), device=dev,
+                   engine=CorrectionEngine(fft_impl="pallas", device=dev))
+    card.params = card.bundle.load(cpu.params.state_dict())
+    card.opt_state = card.optimizer.init(card.params.state_dict())
+    counters = (t_rfft.launches, t_scube.launches, t_fcube.launches)
+    before = {k: v for c in counters for k, v in c.items()}
+    want, got = cpu.train(1)["final_loss"], card.train(1)["final_loss"]
+    launched = {k: v - before[k] for c in counters for k, v in c.items() if v > before[k]}
+    assert np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want)
+    assert launched.get("rfft_fwd_epilogue_rows", 0) > 0 and launched.get("unpack_sclip_rows", 0) > 0
+    odd = any(min(4096, t.numel()) % 2 for t in tree.leaves(card.state()[0]) if t.numel() >= 2)
+    assert (launched.get("fcube_rows", 0) > 0) == (launched.get("scube_rows", 0) > 0) == odd
+    assert not {"rfft_fwd_epilogue", "unpack_sclip", "fcube", "scube"} & set(launched), launched

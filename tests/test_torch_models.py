@@ -87,20 +87,26 @@ def test_ported_arch_config_is_the_reference(arch):
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
 
 
-@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-tiny"])
-def test_unported_arch_raises(arch):
-    """The vlm and audio archs: their configs, full and SMOKE, are the
-    reference's field for field, and they build; their training is not
-    ported, and ``Trainer`` raises for them, naming ROADMAP.md Queue 1,
-    item 5c."""
+def _trains_a_step(cfg, ckpt_dir):
+    """A SMOKE Trainer of ``cfg`` on the CPU takes one step (a vlm's
+    seq_len counts its vision positions: 32 leave 16 tokens)."""
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
+    run = TrainerConfig(seq_len=32, global_batch=2, ckpt_dir=str(ckpt_dir), ckpt_every=100, ckpt_async=False)
+    out = Trainer(cfg, run, device="cpu").train(1)
+    assert out["final_step"] == 1 and np.isfinite(out["final_loss"])
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-tiny"])
+def test_vlm_and_audio_arch_configs_build_and_train(arch, tmp_path):
+    """The vlm and audio archs: their configs, full and SMOKE, are the
+    reference's field for field, they build, and a SMOKE ``Trainer`` takes
+    a step (their training parity is in test_torch_train_families.py)."""
     for ours, theirs in ((get_config(arch), r_get_config(arch)),
                          (get_smoke_config(arch), r_get_smoke_config(arch))):
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     assert t_model.build_model(get_smoke_config(arch), device="cpu").cfg.name == arch
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5c"):
-        Trainer(get_smoke_config(arch), TrainerConfig(), device="cpu")
+    _trains_a_step(get_smoke_config(arch), tmp_path)
 
 
 def test_unknown_arch_raises():
@@ -121,18 +127,17 @@ def test_ported_family_builds(family):
 
 
 @pytest.mark.parametrize("family", ["vlm", "audio"])
-def test_unported_family_raises(family):
-    """The vlm and audio families build and score, but their training is
-    not ported: ``Trainer`` raises, naming ROADMAP.md Queue 1, item 5c; an
-    unknown family raises in ``build_model``."""
-    from repro_torch.runtime.trainer import Trainer, TrainerConfig
-
+def test_vlm_and_audio_families_train_and_an_unknown_family_raises(family, tmp_path):
+    """The vlm and audio families build, score and train (a SMOKE
+    ``Trainer`` takes a step); an unknown family raises in ``build_model``
+    and in ``lm_class``."""
     cfg = get_smoke_config(PORTED_FAMILY_ARCH[family])
     assert t_model.build_model(cfg, device="cpu").cfg.family == family
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5c"):
-        Trainer(cfg, TrainerConfig(), device="cpu")
+    _trains_a_step(cfg, tmp_path)
     with pytest.raises(ValueError, match="unknown family"):
         t_model.build_model(dataclasses.replace(cfg, family=family + "x"), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        t_model.lm_class(dataclasses.replace(cfg, family=family + "x"))
 
 
 def test_device_defaults_to_cuda():

@@ -42,6 +42,19 @@ Phases, one JSON line each (or more):
               (4, 6, 6, 448, 64))
   pencils     (part kernel) the per-pencil kernels vs their twins at the KV
               shapes
+  sharded     the distribution at world size 1 (one-rank NCCL group, 1-D
+              DeviceMesh "data"), the code the CPU tests run on 2 and 4 gloo
+              ranks: FFCz.compress(ShardedField) of nyx-like-128 (Delta_rel)
+              and nyx-like (64^3, pspec_rel; CUTS) with fft_impl "packed",
+              stored bounds rechecked in float64, decompress_sharded bitwise
+              decompress; a pallas CorrectionEngine(backend="sharded") on
+              49,152 pencils of 1024 (kernels 3p, 4p, launches on path
+              "sharded", first calls held bitwise) bitwise the batched
+              engine; compressed_psum of 2^26 values bitwise the one-device
+              quantize-dequantize; power_spectrum of a ShardedField against
+              the unsharded one (shells rtol 1e-4, DC 1e-6 of the largest).  Not shown on
+              one card: more than one rank, NCCL's all-to-all across cards,
+              cuFFT's batch-invariance across world sizes
   lm_family   qwen2-0.5b (24 layers), granite-moe-3b-a800m (32), mamba2-2.7b
               (64), zamba2-7b (81: 13 groups + 3), llava-next-mistral-7b (32
               layers; 2880 standard-normal patches before each row's 2048
@@ -162,6 +175,10 @@ depths that the check-only depths were chosen from.
     python3 chip_smoke.py --train-families
 
 builds the kernels and runs phase train_family alone, with its gates.
+
+    python3 chip_smoke.py --sharded
+
+builds the kernels and runs phase sharded alone, with its gates.
 """
 
 from __future__ import annotations
@@ -214,7 +231,10 @@ CUTS = ["phase 6's pspec_rel case at 64^3 and its E_roi case at 128^3, instead o
         "and shallower, every width kept: 2 granite-moe layers, 2 mamba2, 6 zamba2 (one group with the shared "
         "block), 1 llava, whisper whole (a cut for time: raw checkpoints moved ~0.56 GB/s on an NVIDIA H100 80GB "
         "HBM3 machine at 700 W, and at the train depths the five archs' saves and restores took 290 of the "
-        "phase's 311 s against the 150 s it may add)"]
+        "phase's 311 s against the 150 s it may add)",
+        "phase sharded's pspec_rel case at 64^3 (nyx-like) instead of nyx-like-128, as phase 6's: the pspec bound "
+        "makes every frequency component an edit, and the host Huffman coder took 103 s for that case at 128^3 "
+        "against the phase's 40 s"]
 
 
 class SmokeFailure(Exception):
@@ -2789,6 +2809,202 @@ def phase_session_recover(dev, records, frames, crash_after=2):
     shutil.rmtree(SERVICE_DIR, ignore_errors=True)
 
 
+DIST_DIR = ROOT / "build" / "chip_smoke_dist"  # the process group's init file (ignored by git), removed after
+# phase sharded's cases: (label, field, FFCzConfig keywords); the pspec case
+# at 64^3 (CUTS)
+SHARDED_CODEC = (("nyx-like-128 Delta_rel", "nyx-like-128", dict(E_rel=1e-3, Delta_rel=1e-3)),
+                 ("nyx-like (64^3) pspec_rel", "nyx-like", dict(E_rel=1e-3, Delta_rel=None, pspec_rel=1e-3)))
+
+
+def phase_sharded(dev, records, codec_cases=SHARDED_CODEC, spectrum_field="nyx-like-128", rows=49152,
+                  block=1024, psum_values=1 << 26):
+    """The port's distribution at world size 1, through the code the CPU's
+    gloo ranks run: a one-rank process group (NCCL on the card, gloo on the
+    CPU; file:// init under build/) and a 1-D ``DeviceMesh`` ("data",).
+
+    - codec: ``FFCz.compress(ShardedField)`` of each case with
+      ``fft_impl="packed"`` (the loop's dist mode), both stored bounds
+      rechecked in float64, ``decompress_sharded`` bitwise ``decompress``;
+    - backend: a pallas ``CorrectionEngine(backend="sharded")`` on ``rows``
+      pencils of ``block`` (kernels 3p, 4p), bitwise the batched engine's
+      corrected values, edits and per-block stats; its launches are counted
+      under path "sharded", each kernel's first call held bitwise against
+      its twin;
+    - ``compressed_psum`` of ``psum_values`` float32 values, bitwise the
+      one-device quantize-dequantize;
+    - ``power_spectrum`` of a ShardedField against the unsharded one at the
+      reference's bar for its own (shells within rtol 1e-4, the DC shell
+      within 1e-6 of the largest: float32 shell sums re-associate).
+    """
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.compressors import get_compressor
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.core.ffcz import FFCz, FFCzConfig
+    from repro_torch.core.spectrum import power_spectrum
+    from repro_torch.data.fields import error_pencils, make_field
+    from repro_torch.kernels.rfft import ops as rfft_ops
+    from repro_torch.optim import compressed_psum
+    from repro_torch.optim.grad_compress import _quantize_dequantize
+    from repro_torch.sharding import ShardedField
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(0)  # the rank's card, before the mesh (torchrun's LOCAL_RANK)
+    dist.init_process_group(backend, init_method=f"file://{DIST_DIR / 'init'}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(torch.device(dev).type, (1,), mesh_dim_names=("data",))
+        emit("sharded", part="group", backend=dist.get_backend(), world_size=dist.get_world_size(),
+             mesh=list(mesh.shape), mesh_dim_names=list(mesh.mesh_dim_names))
+
+        for i, (label, name, kw) in enumerate(codec_cases):
+            x = make_field(name)
+            codec = FFCz(get_compressor("szlike"), FFCzConfig(fft_impl="packed", max_iters=3000, **kw), device=dev)
+            if i == 0:
+                # the first call pays the group's first collectives and the
+                # cuFFT plans of every pass; the second is the steady state
+                first = codec.compress(ShardedField.shard(x, mesh)).stats.stage_seconds
+                # the single-device path on the same field: bound-class
+                # (the same host-resolved E, Delta at float32 FFT rounding)
+                single = codec.compress(x)
+            blob = codec.compress(ShardedField.shard(x, mesh))
+            t0 = time.perf_counter()
+            dec = codec.decompress(blob)
+            decode_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = codec.decompress_sharded(blob, mesh)
+            scatter_s = time.perf_counter() - t0
+            spatial, frequency = recheck(x, dec, blob)
+            st = blob.stats
+            bitwise = bool(np.array_equal(back.to_host(), dec))
+            emit("sharded", part="codec", case=label, shape=list(x.shape), fft_impl="packed",
+                 iterations=st.iterations, converged=st.converged, spatial_margin=spatial,
+                 frequency_margin=frequency, stage_seconds=st.stage_seconds,
+                 first_call_stage_seconds=first if i == 0 else None, decode_seconds=decode_s,
+                 decompress_sharded_seconds=scatter_s, decompress_sharded_bitwise=bitwise,
+                 total_bytes=st.total_bytes, pad_meta=blob.pad_meta is not None)
+            require(st.converged, f"sharded {label}: POCS did not converge in {st.iterations} iterations")
+            require(spatial >= 0 and frequency >= 0, f"sharded {label}: stored bound violated")
+            require(bitwise, f"sharded {label}: decompress_sharded differs from decompress")
+            if i == 0:
+                delta_rel = abs(single.Delta_scalar - blob.Delta_scalar) / blob.Delta_scalar
+                emit("sharded", part="single_device", case=label, iterations=single.stats.iterations,
+                     stage_seconds=single.stats.stage_seconds, total_bytes=single.stats.total_bytes,
+                     same_E=single.E == blob.E, Delta_rel_diff=delta_rel)
+                require(single.stats.converged and min(recheck(x, codec.decompress(single), single)) >= 0,
+                        f"sharded {label}: the single-device blob misses its bounds")
+                require(single.E == blob.E and delta_rel <= 1e-6,
+                        f"sharded {label}: bounds resolved off the single-device plan's")
+
+        errs, Es, Ds = error_pencils(dev, rows, block)
+        batched = CorrectionEngine(backend="batched", fft_impl="pallas", device=dev)
+        engine = CorrectionEngine(backend="sharded", fft_impl="pallas", mesh=mesh)
+        batched.correct(errs, Es, Ds, block=block)  # warm-up: cuFFT plans
+        sync(dev)
+        t0 = time.perf_counter()
+        want = batched.correct(errs, Es, Ds, block=block, return_edits=True)
+        sync(dev)
+        batched_s = [time.perf_counter() - t0]
+        captured, undo = first_calls((rfft_ops, PENCIL_WRAPPERS))
+        read = reset_launches()
+        try:
+            t0 = time.perf_counter()
+            got = engine.correct(errs, Es, Ds, block=block, return_edits=True)
+            sync(dev)
+            sharded_s = time.perf_counter() - t0
+        finally:
+            undo()
+        counts = read()
+        launches_on_path(records, counts, "sharded")
+        hold_at_path_shapes("sharded", records, captured)
+        del captured
+        timed = []
+        for eng in (engine, batched):  # in turns: batched, sharded, sharded, batched
+            sync(dev)
+            t0 = time.perf_counter()
+            eng.correct(errs, Es, Ds, block=block, return_edits=True)
+            sync(dev)
+            timed.append(time.perf_counter() - t0)
+        sharded_s = [sharded_s, timed[0]]
+        batched_s.append(timed[1])
+        (c_got, e_got, s_got), (c_want, e_want, s_want) = got, want
+        pairs = list(zip(c_got, c_want)) + [(a, b) for eg, ew in zip(e_got, e_want) for a, b in zip(eg, ew)]
+        pairs += [(getattr(s_got, k), getattr(s_want, k))
+                  for k in ("iterations", "converged", "block_iterations", "block_converged")]
+        bitwise = all(same(a, b) for a, b in pairs)
+        iters = s_want.block_iterations.cpu().numpy()
+        emit("sharded", part="backend", fft_impl="pallas", block=block, pencils=int(iters.size),
+             values=sum(e.numel() for e in errs), batched_seconds=batched_s, sharded_seconds=sharded_s,
+             iterations_histogram={int(k): int(v) for k, v in zip(*np.unique(iters, return_counts=True))},
+             converged=bool(s_want.converged.all()), bitwise_vs_batched=bitwise,
+             launches={k: v for k, v in counts.items() if v})
+        require(bool(s_want.converged.all()), "sharded backend: a pencil did not converge")
+        require(int(iters.max()) > 1, "sharded backend: no pencil needed correcting")
+        require(bitwise, "sharded backend: results differ from the batched backend")
+        del errs, got, want, pairs
+
+        gen = torch.Generator(device=dev).manual_seed(6)
+        g = torch.randn(psum_values, generator=gen, device=dev)
+        psum_s = []
+        for _ in range(3):  # the first call's all-reduces are the group's first of their kind
+            sync(dev)
+            t0 = time.perf_counter()
+            total = compressed_psum(g, mesh)
+            sync(dev)
+            psum_s.append(time.perf_counter() - t0)
+        want = _quantize_dequantize(g, 8, 1e-2)[0]
+        sync(dev)
+        t0 = time.perf_counter()
+        _quantize_dequantize(g, 8, 1e-2)
+        sync(dev)
+        quantize_s = time.perf_counter() - t0
+        bitwise = same(total, want)
+        emit("sharded", part="compressed_psum", values=psum_values, seconds=psum_s,
+             one_device_quantize_seconds=quantize_s, bitwise_vs_quantize=bitwise,
+             max_abs_err=float((total - want).abs().max()))
+        require(bitwise, "compressed_psum differs from the one-device quantize-dequantize")
+        del g, total, want
+
+        x = make_field(spectrum_field)
+        field = ShardedField.shard(x, mesh)
+        spec_s = []
+        for _ in range(2):  # the first call builds the passes' cuFFT plans
+            sync(dev)
+            t0 = time.perf_counter()
+            _, got = power_spectrum(field)
+            sync(dev)
+            spec_s.append(time.perf_counter() - t0)
+        x_dev = torch.from_numpy(x).to(dev)
+        power_spectrum(x_dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        _, want = power_spectrum(x_dev)
+        sync(dev)
+        single_s = time.perf_counter() - t0
+        got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+        # the reference's bar for its sharded spectrum: shells 1.. within
+        # rtol 1e-4, shell 0 (the mean-normalized DC, ~0) within 1e-6 of the
+        # largest shell
+        rel = float(np.max(np.abs(got[1:] - want[1:]) / want[1:]))
+        dc = float(abs(got[0]) / want[1:].max())
+        emit("sharded", part="power_spectrum", field=spectrum_field, seconds=spec_s, single_device_seconds=single_s,
+             shells=int(want.size), max_rel_shell_diff=rel, dc_over_largest_shell=dc)
+        require(rel <= 1e-4 and dc <= 1e-6, f"power_spectrum_sharded off power_spectrum: shells {rel:.3g}, DC {dc:.3g}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    emit("sharded", part="summary", seconds=time.perf_counter() - t_phase,
+         launches_by_path={k: records[k]["launches_by_path"]["sharded"] for k in EVEN_PENCIL_KERNELS})
+
+
 def recheck(x, dec, blob):
     """Float64 margins of ``dec`` against the bounds ``blob`` STORES."""
     import numpy as np
@@ -2925,6 +3141,21 @@ def train_families_only() -> int:
     return 0
 
 
+def sharded_only() -> int:
+    """Build the kernels and run phase sharded alone (its gates too)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("device", nvidia_smi=nvidia_smi_line())
+    emit("build", seconds=build.build_all())
+    records = {k: {"name": k, "launches": 0} for k in KERNEL_ROWS}
+    phase_sharded("cuda", records)
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
@@ -2942,8 +3173,10 @@ def main() -> int:
         return decode_sweep()
     if sys.argv[1:] == ["--train-families"]:
         return train_families_only()
+    if sys.argv[1:] == ["--sharded"]:
+        return sharded_only()
     if sys.argv[1:]:
-        print("usage: chip_smoke.py [--compare-lm OTHER_CHECKOUT | --decode-sweep | --train-families]",
+        print("usage: chip_smoke.py [--compare-lm OTHER_CHECKOUT | --decode-sweep | --train-families | --sharded]",
               file=sys.stderr)
         return 2
 
@@ -3020,6 +3253,11 @@ def main() -> int:
     records["flash_attention"] = phase_flash(dev)
     phase_flash_families(dev, records["flash_attention"])
     records.update(phase_pencil_kernels(dev))
+
+    # the port's distribution at world size 1: the sharded codec, the
+    # sharded pencil backend through kernels 3p/4p, compressed_psum and the
+    # sharded power spectrum, on a one-rank NCCL group
+    phase_sharded(dev, records)
 
     # the LM families at full width; the pencil path (KV-cache compression)
     # on the dense model's cache

@@ -19,7 +19,9 @@ Layers:
   models/       the dense LM (layers, attention, blocks, bundles).
   optim/        AdamW + FFCz-compressed gradients.
   checkpoint/   atomic checkpoints, optionally FFCz-compressed.
-  runtime/      the fault-tolerant trainer.
+  runtime/      the fault-tolerant trainer; elastic mesh re-planning.
+  sharding/     the slab-decomposed rFFT over torch.distributed
+                (``ShardedField``): whole fields sharded across ranks.
   serving/      batched decode with FFCz KV-cache compression.
   launch/       step functions and the train / serve entry points.
   data/, configs/  token pipeline, synthetic science fields, arch configs.

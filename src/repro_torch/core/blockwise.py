@@ -6,8 +6,8 @@ pencil is corrected independently; the frequency bound then applies to each
 pencil's own spectrum.  The plan stage
 (:meth:`repro_torch.core.engine.CorrectionEngine.plan_pencils`) resolves
 bounds and tiling, this module runs the device loop, and
-:mod:`repro_torch.core.edits` serializes the result.  Two of the reference's
-three backends share the packed ``(B, block)`` layout here:
+:mod:`repro_torch.core.edits` serializes the result.  The reference's three
+backends share the packed ``(B, block)`` layout:
 
 ``local``    one :func:`blockwise_correct_with_edits` call per tensor.
 ``batched``  MANY heterogeneous tensors in ONE loop (:func:`correct_batch`):
@@ -15,9 +15,13 @@ three backends share the packed ``(B, block)`` layout here:
              per-tensor bounds become per-block bound vectors, and one
              batched loop (:func:`repro_torch.core.pocs.alternating_projection_batched`)
              corrects every pencil, each row frozen once it converges.
-
-The reference's ``sharded`` backend (the batched program under
-``shard_map``) is ROADMAP Queue 1 slice 5 and raises here.
+``sharded``  the batched loop with the packed rows split over a mesh axis
+             (:func:`_pocs_sharded`): every rank of the axis packs the same
+             batch, runs the loop on its own contiguous rows and
+             ``all_gather``s the results.  Blocks are independent, so no
+             collective runs inside the loop, and each pencil's bits and
+             stats are the batched backend's (the loop's transforms run per
+             row).
 
 Buffers: JAX donates ``correct_batch``'s inputs so each corrected output can
 alias its input.  The port donates nothing of the caller's: inputs are read,
@@ -35,10 +39,9 @@ from typing import Any, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.pocs import alternating_projection_batched
+from repro_torch.core.pocs import AlternatingProjectionResult, alternating_projection_batched
 from repro_torch.device import resolve_device
-
-_SHARDED = "the 'sharded' backend is not ported to repro_torch yet (ROADMAP.md Queue 1, slice 5)"
+from repro_torch.sharding import dist_fft
 
 
 def tile_1d(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, int]:
@@ -103,9 +106,7 @@ def empty_stats(device) -> BatchCorrectionStats:
 
 
 def _check_backend(backend: str) -> None:
-    if backend == "sharded":
-        raise NotImplementedError(_SHARDED)
-    if backend != "batched":
+    if backend not in ("batched", "sharded"):
         raise ValueError(f"the packed path runs backend 'batched' (or 'sharded'), got {backend!r}")
 
 
@@ -119,6 +120,55 @@ def _pocs_batched(packed, E_blk, D_blk, max_iters, fft_impl="xla", warm=None, do
         packed, E_blk, D_blk, max_iters=max_iters, fft_impl=fft_impl, warm_freq=warm, donate=donate,
         keep_edits=keep_edits,
     )
+
+
+def _pocs_sharded(packed, E_blk, D_blk, max_iters, mesh, axis, fft_impl="xla", warm=None, donate=False,
+                  keep_edits=True):
+    """The batched loop with the packed rows split over ``mesh[axis]``.
+
+    The block count is padded to a multiple of the axis size with
+    already-feasible zero blocks (E = Delta = 1; zero warm rows when warm
+    started), which stop at the first check.  Each rank runs
+    :func:`_pocs_batched` on its contiguous share of rows; the results are
+    ``all_gather``ed in rank order and sliced back to the batch's rows, on
+    every rank.  ``donate`` lets the loop write its ``eps`` into
+    ``packed``'s rows.
+    """
+    group, n_dev, rank = dist_fft.mesh_axis(mesh, axis)
+    nb = packed.shape[0]
+    pad = (-nb) % n_dev
+    if pad:
+        packed = torch.cat([packed, packed.new_zeros((pad, packed.shape[1]))])
+        E_blk = torch.cat([E_blk, E_blk.new_ones((pad,))])
+        D_blk = torch.cat([D_blk, D_blk.new_ones((pad,))])
+        if warm is not None:
+            warm = torch.cat([warm, warm.new_zeros((pad, warm.shape[1]))])
+        donate = True  # the padded buffer is the loop's own
+    rows = (nb + pad) // n_dev
+    mine = slice(rank * rows, (rank + 1) * rows)
+    res = _pocs_batched(packed[mine], E_blk[mine], D_blk[mine], max_iters, fft_impl,
+                        None if warm is None else warm[mine], donate=donate, keep_edits=keep_edits)
+    del packed, warm
+
+    def gathered(t):
+        return None if t is None else dist_fft.all_gather_cat(t, group, n_dev)[:nb]
+
+    return AlternatingProjectionResult(
+        eps=gathered(res.eps),
+        spat_edits=gathered(res.spat_edits),
+        freq_edits=gathered(res.freq_edits),
+        iterations=gathered(res.iterations),
+        converged=gathered(res.converged),
+        final_violations=gathered(res.final_violations),
+    )
+
+
+def _run_packed(packed, E_blk, D_blk, max_iters, backend, mesh, axis, fft_impl, warm, donate=False,
+                keep_edits=True):
+    """The packed loop on ``backend``: batched, or sharded over ``mesh[axis]``."""
+    if backend == "sharded":
+        return _pocs_sharded(packed, E_blk, D_blk, max_iters, mesh, axis, fft_impl, warm, donate, keep_edits)
+    return _pocs_batched(packed, E_blk, D_blk, max_iters, fft_impl, warm, donate=donate, keep_edits=keep_edits)
 
 
 def _segment_stats(res, seg: torch.Tensor, n: int) -> BatchCorrectionStats:
@@ -143,8 +193,9 @@ def _segments(counts: Sequence[int], device) -> torch.Tensor:
 
 
 def _correct_batch_core(tensors, E_arr, Delta_arr, block, max_iters, return_edits, return_corrected,
-                        backend="batched", fft_impl="xla", warm=None):
-    """The whole batched correction: pack, batched loop, unpack, stats."""
+                        backend="batched", fft_impl="xla", warm=None, mesh=None, axis="data"):
+    """The whole batched correction: pack, batched (or sharded) loop,
+    unpack, stats."""
     _check_backend(backend)
     tiles_list, pads, counts = [], [], []
     for t in tensors:
@@ -159,8 +210,8 @@ def _correct_batch_core(tensors, E_arr, Delta_arr, block, max_iters, return_edit
     if warm is not None:
         warm_packed = torch.cat([torch.as_tensor(w, device=packed.device).to(torch.complex64)
                                  for w in warm], dim=0)
-    res = _pocs_batched(packed, E_arr[seg], Delta_arr[seg], max_iters, fft_impl, warm_packed, donate=True,
-                        keep_edits=return_edits)
+    res = _run_packed(packed, E_arr[seg], Delta_arr[seg], max_iters, backend, mesh, axis, fft_impl, warm_packed,
+                      donate=True, keep_edits=return_edits)
     del packed, warm_packed
     stats = _segment_stats(res, seg, len(tensors))
     eps, edits, offsets = res.eps, [], np.cumsum((0,) + tuple(counts))
@@ -225,15 +276,19 @@ def as_bound_array(v, n: int, device) -> torch.Tensor:
 
 
 def correct_packed(packed, counts: Sequence[int], E, Delta, max_iters: int = 50,
-                   backend: str = "batched", fft_impl: str = "xla", warm=None, device=None):
+                   backend: str = "batched", fft_impl: str = "xla", warm=None, device=None,
+                   mesh=None, axis: str = "data"):
     """Run the batched loop on a pre-packed ``(B, block)`` buffer (a
     :func:`pack_batch` staging array, or a float32 tensor); returns
     ``(res, stats)``.
 
     A numpy buffer is copied to ``device`` (``None`` means ``"cuda"``); a
-    tensor runs where it lies.  The buffer is not written.
+    tensor runs where it lies.  The buffer is not written.  ``backend`` /
+    ``mesh`` / ``axis`` as in :func:`correct_batch`.
     """
     _check_backend(backend)
+    if backend == "sharded" and mesh is None:
+        mesh = dist_fft.default_mesh(axis)
     if isinstance(packed, torch.Tensor):
         dev = packed.device
     else:
@@ -241,11 +296,14 @@ def correct_packed(packed, counts: Sequence[int], E, Delta, max_iters: int = 50,
         packed = torch.from_numpy(np.ascontiguousarray(packed, dtype=np.float32)).to(dev)
     n = len(counts)
     seg = _segments(counts, dev)
-    res = _pocs_batched(
+    res = _run_packed(
         packed,
         as_bound_array(E, n, dev)[seg],
         as_bound_array(Delta, n, dev)[seg],
         max_iters,
+        backend,
+        mesh,
+        axis,
         fft_impl,
         None if warm is None else torch.as_tensor(warm, device=dev).to(torch.complex64),
     )
@@ -255,7 +313,7 @@ def correct_packed(packed, counts: Sequence[int], E, Delta, max_iters: int = 50,
 def correct_batch(tensors: Sequence[Any], E, Delta, block: int = 4096, max_iters: int = 50,
                   return_edits: bool = False, return_corrected: bool = True,
                   backend: str = "batched", fft_impl: str = "xla",
-                  warm_freq: Optional[Sequence[Any]] = None, device=None):
+                  warm_freq: Optional[Sequence[Any]] = None, device=None, mesh=None, axis: str = "data"):
     """Correct a heterogeneous batch of error tensors in one batched loop.
 
     Args:
@@ -271,7 +329,12 @@ def correct_batch(tensors: Sequence[Any], E, Delta, block: int = 4096, max_iters
         ``(spat_edits (n_blocks, block), freq_edits (n_blocks, block//2+1))``.
       return_corrected: set False (with ``return_edits``) to skip the
         per-tensor corrected outputs.
-      backend: ``"batched"``; ``"sharded"`` raises ``NotImplementedError``.
+      backend: ``"batched"``, or ``"sharded"``: the packed rows split over
+        ``mesh[axis]`` (every rank of the axis calls with the same batch and
+        gets the whole result), bitwise the batched backend's.
+      mesh, axis: the sharded backend's ``DeviceMesh`` and axis name;
+        ``mesh=None`` takes a 1-D mesh over the default process group, and
+        raises ``ValueError`` when none is initialized.
       fft_impl: the loop's transform selector (``"xla"`` | ``"packed"`` |
         ``"pallas"``).
       warm_freq: optional per-tensor warm-start spectra, ``warm_freq[i]`` of
@@ -282,6 +345,8 @@ def correct_batch(tensors: Sequence[Any], E, Delta, block: int = 4096, max_iters
     dtype and ``stats`` is a :class:`BatchCorrectionStats`.
     """
     _check_backend(backend)
+    if backend == "sharded" and mesh is None:
+        mesh = dist_fft.default_mesh(axis)
     n = len(tensors)
     if n == 0:
         stats = empty_stats(resolve_device(device))
@@ -293,7 +358,7 @@ def correct_batch(tensors: Sequence[Any], E, Delta, block: int = 4096, max_iters
         raise ValueError(f"expected {n} per-tensor warm spectra, got {len(warm_freq)}")
     corrected, edits, stats = _correct_batch_core(
         tensors, as_bound_array(E, n, dev), as_bound_array(Delta, n, dev), block, max_iters,
-        return_edits, return_corrected, backend, fft_impl, warm_freq,
+        return_edits, return_corrected, backend, fft_impl, warm_freq, mesh, axis,
     )
     if return_edits:
         return corrected, edits, stats

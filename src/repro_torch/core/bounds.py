@@ -90,7 +90,7 @@ def resolve_bounds(
     return DualBounds(E=E_abs, Delta=Delta_abs)
 
 
-def power_spectrum_delta(X: torch.Tensor, rel: float, floor: float = 0.0) -> torch.Tensor:
+def power_spectrum_delta(X: torch.Tensor, rel: float, floor: float = 0.0, has_dc: bool = True) -> torch.Tensor:
     """Per-component ``Delta_k`` guaranteeing a relative power-spectrum bound.
 
     The paper (Observation 4) preserves the power spectrum by assigning
@@ -106,18 +106,22 @@ def power_spectrum_delta(X: torch.Tensor, rel: float, floor: float = 0.0) -> tor
 
     Total: ``|P_hat - P| / P <= (1+rel/2)^2 - 1 <= rel`` for rel <= 1.
     ``floor`` (absolute) keeps near-zero components from forcing
-    ``Delta_k = 0``.
+    ``Delta_k = 0``.  ``has_dc=False`` is for a block of a sharded spectrum
+    whose flat index 0 is not the DC component (only the first rank's is).
     """
     t = float(np.sqrt(1.0 + rel / 2.0) - 1.0)
     mag = torch.abs(X)
     delta = torch.maximum(_f32(t, mag) * mag / _f32(np.sqrt(2.0), mag), _f32(floor, mag))
+    if not has_dc:
+        return delta
     flat = delta.reshape(-1)
     dc_bound = _f32(rel / 8.0, mag) * mag.reshape(-1)[0]
     flat[0] = torch.minimum(flat[0], dc_bound)
     return flat.reshape(X.shape)
 
 
-def power_spectrum_delta_rfft(X_half: torch.Tensor, rel: float, floor: float = 0.0) -> torch.Tensor:
+def power_spectrum_delta_rfft(X_half: torch.Tensor, rel: float, floor: float = 0.0,
+                              has_dc: bool = True) -> torch.Tensor:
     """:func:`power_spectrum_delta` on the rfft half-spectrum.
 
     ``X_half = rfftn(x)`` keeps every independent component of a real
@@ -125,7 +129,7 @@ def power_spectrum_delta_rfft(X_half: torch.Tensor, rel: float, floor: float = 0
     index 0, so the grid computed here *is* the half-plane restriction of the
     full-spectrum grid.  This is the grid the rFFT POCS loop consumes.
     """
-    return power_spectrum_delta(X_half, rel, floor=floor)
+    return power_spectrum_delta(X_half, rel, floor=floor, has_dc=has_dc)
 
 
 def resolve_roi_bound_grid(E_roi, E_global: float, shape, scale: float = 0.1) -> np.ndarray:

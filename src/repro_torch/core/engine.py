@@ -8,11 +8,15 @@
   ENCODE   pair-weight accounting, :func:`adaptive_quant_bits`, and
            edit-stream serialization through :mod:`repro_torch.core.edits`.
 
-Whole fields run the loop on one device.  Pencil-tiled batches (the KV-cache,
-gradient and checkpoint clients) run :mod:`repro_torch.core.blockwise` on
-the ``local`` backend (one loop per tensor) or the ``batched`` backend (one
-loop for the whole batch, the default).  The ``sharded`` backend raises
-``NotImplementedError`` (ROADMAP.md Queue 1, slice 5).
+Whole fields run the loop on one device, or slab-sharded over a mesh axis
+when PLAN and EXECUTE are given a :class:`repro_torch.sharding.dist_fft.
+ShardedField` (every rank of the axis calls them; the loop runs in ``dist``
+mode and the host stages run on every rank's gathered copy).  Pencil-tiled
+batches (the KV-cache, gradient and checkpoint clients) run
+:mod:`repro_torch.core.blockwise` on the ``local`` backend (one loop per
+tensor), the ``batched`` backend (one loop for the whole batch, the default)
+or the ``sharded`` backend (the batch's rows split over a mesh axis, each
+rank running the batched loop on its own rows).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Any, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import host
 from repro_torch.coding.quantize import DEFAULT_QUANT_BITS
@@ -38,6 +43,8 @@ from repro_torch.core.edits import EncodedEdits, encode_edits
 from repro_torch.core.errors import FFCzError, InfeasibleBound, classify_exception
 from repro_torch.core.pocs import AlternatingProjectionResult, alternating_projection
 from repro_torch.device import resolve_device
+from repro_torch.sharding import dist_fft
+from repro_torch.sharding.dist_fft import ShardedField
 
 _BACKENDS = ("local", "batched", "sharded")
 _FFT_IMPLS = ("xla", "packed", "pallas")
@@ -246,10 +253,12 @@ class FieldExecuteHandle:
     caches the finalized :class:`FieldResult` or the classified error.
     """
 
-    def __init__(self, engine: "CorrectionEngine", raw: AlternatingProjectionResult, plan: FieldPlan):
+    def __init__(self, engine: "CorrectionEngine", raw: AlternatingProjectionResult, plan: FieldPlan,
+                 field: Optional[ShardedField] = None):
         self._engine = engine
         self._raw = raw
         self._plan = plan
+        self._field = field  # the ShardedField when sharded, else None
         self._event = _record_event(raw.eps)
         self._value: Optional[FieldResult] = None
         self._exc: Optional[FFCzError] = None
@@ -259,7 +268,7 @@ class FieldExecuteHandle:
             raise self._exc
         if self._value is None:
             try:
-                self._value = self._engine._finalize_field(self._raw, self._event, self._plan)
+                self._value = self._engine._finalize_field(self._raw, self._event, self._plan, self._field)
             except FFCzError as err:
                 self._exc = err
                 raise
@@ -358,39 +367,53 @@ class _FenceHandle:
 
 
 class CorrectionEngine:
-    """Plan / execute / encode FFCz corrections on one device.
+    """Plan / execute / encode FFCz corrections.
 
     Args:
-      backend: ``"local"`` (one pencil loop per tensor) or ``"batched"`` (one
-        loop for a whole batch; the default).  ``"sharded"`` raises
-        ``NotImplementedError`` (ROADMAP.md Queue 1, slice 5).  Whole fields
-        run the same loop on every backend.
-      axis: the mesh axis name of the sharded backend (kept for the
-        reference's signature).
+      backend: ``"local"`` (one pencil loop per tensor), ``"batched"`` (one
+        loop for a whole batch; the default) or ``"sharded"`` (the batch's
+        rows split over ``mesh[axis]``, each rank running the batched loop
+        on its rows; every rank of the axis calls :meth:`correct` with the
+        same batch).  Whole fields run the same loop on every backend; a
+        :class:`~repro_torch.sharding.dist_fft.ShardedField` runs it sharded.
+      axis: the mesh axis the sharded backend splits the batch over.
       fft_impl: default POCS transform selector for the *pencil* paths
         (``"xla"`` | ``"packed"`` | ``"pallas"``); whole fields take theirs
         from ``FFCzConfig.fft_impl`` via the plan.
       device: where PLAN's spectra and EXECUTE's loop run; ``None`` means
-        ``"cuda"`` and raises when there is no card (never a CPU fallback).
+        the mesh's device when a ``mesh`` is given, else ``"cuda"``, and
+        raises when there is no card (never a CPU fallback).
+      mesh: the sharded backend's ``DeviceMesh``; ``None`` builds a 1-D mesh
+        over the default process group on first use
+        (:func:`repro_torch.sharding.dist_fft.default_mesh`), which raises
+        ``ValueError`` when no group is initialized.
     """
 
-    def __init__(self, backend: str = "batched", axis: str = "data", fft_impl: str = "xla", device=None):
+    def __init__(self, backend: str = "batched", axis: str = "data", fft_impl: str = "xla", device=None,
+                 mesh=None):
         if backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
         if fft_impl not in _FFT_IMPLS:
             raise ValueError(f"fft_impl must be 'xla', 'packed' or 'pallas', got {fft_impl!r}")
-        if backend == "sharded":
-            raise NotImplementedError(
-                "the 'sharded' backend is not ported to repro_torch yet (ROADMAP.md Queue 1, slice 5)"
-            )
         self.backend = backend
         self.axis = axis
         self.fft_impl = fft_impl
+        if device is None and mesh is not None:
+            device = dist_fft.mesh_device(mesh)
         self.device = resolve_device(device)
+        self._mesh = mesh
+
+    @property
+    def mesh(self):
+        """The sharded backend's mesh (built over the default group on
+        first use when none was given)."""
+        if self._mesh is None:
+            self._mesh = dist_fft.default_mesh(self.axis)
+        return self._mesh
 
     # -- PLAN --------------------------------------------------------------
 
-    def plan_field(self, x: np.ndarray, cfg) -> FieldPlan:
+    def plan_field(self, x: Union[np.ndarray, ShardedField], cfg) -> FieldPlan:
         """Resolve one whole field's bounds on the device (cfg: FFCzConfig).
 
         The forward spectrum is computed (a float32 device rfft) only when a
@@ -400,13 +423,48 @@ class CorrectionEngine:
         another backend's at float32 rounding level; the blob stores the
         values it was built with and every guarantee is checked against
         those.
+
+        A :class:`~repro_torch.sharding.dist_fft.ShardedField` (a collective
+        call) keeps the spectrum sharded: the forward transform is
+        :func:`~repro_torch.sharding.dist_fft.pencil_rfftn`, maxima are
+        all-reduced (exact in any order), the ``E_rel`` range and the
+        norms come from the gathered host copy, and the ``pspec`` grid is
+        gathered to the host at the true extents, one block at a time.  The
+        plan is the same at every world size.
         """
-        x32 = np.asarray(x, dtype=np.float32)
-        x_dev = torch.from_numpy(np.ascontiguousarray(x32)).to(self.device)
+        sharded = isinstance(x, ShardedField)
+        E_abs, E_rel = cfg.E_abs, cfg.E_rel
+        if sharded:
+            x32, x_dev = x.to_host(), x.local
+            if E_abs is None and E_rel is not None:
+                # the slab-pad rows are zero and would enter the range's min:
+                # the host copy's float32 max, min, subtract and multiply give
+                # the single-device resolution's value exactly
+                rng32 = np.max(x32) - np.min(x32)
+                if float(rng32) == 0.0:
+                    raise InfeasibleBound(
+                        f"E_rel={float(cfg.E_rel):g} on a constant field: range(x) == 0 "
+                        "resolves the spatial bound to E = 0 (an empty s-cube); pass "
+                        "E_abs for constant fields",
+                        stage="plan",
+                    )
+                E_abs, E_rel = np.float32(cfg.E_rel) * np.float32(rng32), None
+        else:
+            x32 = np.asarray(x, dtype=np.float32)
+            x_dev = torch.from_numpy(np.ascontiguousarray(x32)).to(self.device)
+
+        def spectrum():
+            return dist_fft.pencil_rfftn(x) if sharded else torch.fft.rfftn(x_dev)
+
+        def field_max(t):
+            m = torch.max(t).reshape(1)
+            return (dist_fft.all_reduce_(m, x.group, dist.ReduceOp.MAX) if sharded else m)[0]
+
         if cfg.pspec_rel is not None:
-            X = torch.fft.rfftn(x_dev)
-            grid = power_spectrum_delta_rfft(X, cfg.pspec_rel)
-            gmax = float(torch.max(grid))
+            X = spectrum()
+            # a sharded spectrum's DC component is on rank 0's block only
+            grid = power_spectrum_delta_rfft(X, cfg.pspec_rel, has_dc=not sharded or x.rank == 0)
+            gmax = float(field_max(grid))
             if gmax <= 0:
                 # grid = t*|X|/sqrt(2) with floor 0: gmax == 0 iff the field
                 # is all-zero, and every Delta_k would resolve to 0
@@ -416,22 +474,25 @@ class CorrectionEngine:
                     "for zero fields",
                     stage="plan",
                 )
-            floor = torch.tensor(np.float32(gmax * cfg.pspec_floor_rel), device=self.device)
-            Delta_user = torch.maximum(grid, floor).cpu().numpy()
-            bounds = resolve_bounds(x_dev, E_abs=cfg.E_abs, E_rel=cfg.E_rel, Delta_abs=1.0)
+            floor = torch.tensor(np.float32(gmax * cfg.pspec_floor_rel), device=grid.device)
+            Delta_user = torch.maximum(grid, floor)
+            Delta_user = x.freq_to_host(Delta_user) if sharded else Delta_user.cpu().numpy()
+            bounds = resolve_bounds(x_dev, E_abs=E_abs, E_rel=E_rel, Delta_abs=1.0)
             pointwise = True
         elif cfg.Delta_abs is not None:
-            bounds = resolve_bounds(x_dev, E_abs=cfg.E_abs, E_rel=cfg.E_rel, Delta_abs=cfg.Delta_abs)
+            bounds = resolve_bounds(x_dev, E_abs=E_abs, E_rel=E_rel, Delta_abs=cfg.Delta_abs)
             Delta_user = float(bounds.Delta)
             pointwise = False
         else:
-            X = torch.fft.rfftn(x_dev)
-            bounds = resolve_bounds(x_dev, E_abs=cfg.E_abs, E_rel=cfg.E_rel, Delta_rel=cfg.Delta_rel, X=X)
+            X = spectrum()
+            if sharded:
+                X = field_max(torch.abs(X)).reshape(1)  # resolve_bounds reads only max |X_k|
+            bounds = resolve_bounds(x_dev, E_abs=E_abs, E_rel=E_rel, Delta_rel=cfg.Delta_rel, X=X)
             Delta_user = float(bounds.Delta)
             pointwise = False
         E = float(bounds.E)
         l2_norm = _host_l2_norm(x32)
-        abs_max = float(torch.max(torch.abs(x_dev))) if x32.size else 0.0
+        abs_max = float(np.max(np.abs(x32)) if sharded else torch.max(torch.abs(x_dev))) if x32.size else 0.0
         E_proj, Delta_proj, Delta, slack_f = float32_bound_discipline(
             E, Delta_user, cfg.quant_bits, l2_norm, abs_max
         )
@@ -552,7 +613,7 @@ class CorrectionEngine:
     # -- EXECUTE -----------------------------------------------------------
 
     def execute_field(
-        self, eps0: np.ndarray, plan: FieldPlan, warm_freq: Optional[np.ndarray] = None
+        self, eps0: Union[np.ndarray, ShardedField], plan: FieldPlan, warm_freq: Optional[np.ndarray] = None
     ) -> FieldResult:
         """The device POCS loop + the exact float64 host polish.
 
@@ -560,17 +621,30 @@ class CorrectionEngine:
         absorb the FFT round-off so the *shrunk* bounds hold in float64.
         ``warm_freq`` (complex half-spectrum, an array or a tensor) seeds the
         loop's ``freq_edits`` only when ``plan.warm_start`` is True.
+
+        A :class:`~repro_torch.sharding.dist_fft.ShardedField` ``eps0`` (a
+        collective call) runs the loop in ``dist`` mode on every rank's slab;
+        the loop state is gathered, unpadded, for the host polish, which
+        every rank runs on the same values.  The result is bitwise the same
+        at every world size.
         """
         return self.execute_field_async(eps0, plan, warm_freq=warm_freq).result()
 
     def execute_field_async(
-        self, eps0: np.ndarray, plan: FieldPlan, warm_freq: Optional[np.ndarray] = None
+        self, eps0: Union[np.ndarray, ShardedField], plan: FieldPlan, warm_freq: Optional[np.ndarray] = None
     ) -> FieldExecuteHandle:
         """Run the POCS loop on the device; return a handle before the host
         half (fence, staging, float64 polish).  Device failures classify as
         ``execute``-stage :class:`~repro_torch.core.errors.FFCzError`s."""
         if not plan.warm_start:
             warm_freq = None  # neutrality: cold plans never see a warm state
+        if isinstance(eps0, ShardedField):
+            self._check_sharded_field(eps0, plan)
+            try:
+                res = self._pocs_field_sharded(eps0, plan, warm_freq)
+            except (RuntimeError, MemoryError) as e:
+                raise classify_exception(e, "execute") from e
+            return FieldExecuteHandle(self, res, plan, eps0)
         try:
             E_op = (
                 plan.E_proj
@@ -600,14 +674,70 @@ class CorrectionEngine:
             raise classify_exception(e, "execute") from e
         return FieldExecuteHandle(self, res, plan)
 
-    def _finalize_field(self, res: AlternatingProjectionResult, event, plan: FieldPlan) -> FieldResult:
+    @staticmethod
+    def _check_sharded_field(eps0: ShardedField, plan: FieldPlan) -> None:
+        """What the sharded whole-field loop refuses, as the reference does."""
+        if plan.use_kernels:
+            raise ValueError("use_kernels is not supported for sharded whole fields")
+        if plan.fft_impl == "pallas":
+            raise ValueError(
+                "fft_impl='pallas' is not supported for sharded whole fields "
+                "(the fused epilogues assume the whole spectrum; use 'packed')"
+            )
+
+    def _pocs_field_sharded(self, eps0: ShardedField, plan: FieldPlan, warm_freq=None):
+        """The whole-field POCS loop in ``dist`` mode on this rank's slab.
+
+        A pointwise Delta grid, an ROI grid and a warm spectrum are rounded
+        to float32 on the host (the single-device path's rounding), padded
+        to the gathered layout and cut to this rank's block; the ROI grid's
+        pad rows carry the (positive) background bound, so the zero pad rows
+        stay zero through the clip.
+        """
+        if plan.pointwise:
+            delta_op = eps0.to_local(eps0.pad_freq_np(np.asarray(plan.Delta_proj, dtype=np.float32)), freq=True)
+        else:
+            delta_op = plan.Delta_proj
+        if plan.E_grid_proj is not None:
+            e_op = eps0.to_local(eps0.pad_spatial_np(np.asarray(plan.E_grid_proj, dtype=np.float32),
+                                                     fill=np.float32(plan.E_proj)))
+        else:
+            e_op = plan.E_proj
+        warm_op = None
+        if warm_freq is not None:
+            warm = warm_freq.detach().cpu().numpy() if isinstance(warm_freq, torch.Tensor) else warm_freq
+            warm_op = eps0.to_local(eps0.pad_freq_np(np.asarray(warm, dtype=np.complex64)), freq=True)
+        return alternating_projection(
+            eps0.local,
+            e_op,
+            delta_op,
+            max_iters=plan.max_iters,
+            relax=plan.relax,
+            check_slack=0.5 * plan.slack_f,
+            dist=eps0.dist_spec,
+            fft_impl=plan.fft_impl,
+            check_every=plan.check_every,
+            warm_freq=warm_op,
+        )
+
+    def _finalize_field(self, res: AlternatingProjectionResult, event, plan: FieldPlan,
+                        field: Optional[ShardedField] = None) -> FieldResult:
         """The fence + host half of EXECUTE (see :meth:`execute_field_async`)."""
         try:
             if event is not None:
                 event.synchronize()
-            spat = res.spat_edits.cpu().numpy().astype(np.float64)
-            freq = res.freq_edits.cpu().numpy().astype(np.complex128)
-            eps_f = res.eps.cpu().numpy().astype(np.float64)
+            spat, freq, eps_f = res.spat_edits, res.freq_edits, res.eps
+            if field is not None:
+                # every rank's slab on the host, one slab at a time, with the
+                # pad sliced away: the single-device shapes and values (a
+                # collective call)
+                spat = field.spatial_to_host(spat, np.float64)
+                eps_f = field.spatial_to_host(eps_f, np.float64)
+                freq = field.freq_to_host(freq, np.complex128)
+            else:
+                spat = spat.cpu().numpy().astype(np.float64)
+                freq = freq.cpu().numpy().astype(np.complex128)
+                eps_f = eps_f.cpu().numpy().astype(np.float64)
         except (RuntimeError, MemoryError) as e:
             # an asynchronous device failure surfaces at the fence
             raise classify_exception(e, "execute") from e
@@ -658,8 +788,8 @@ class CorrectionEngine:
         """Pencil-tiled correction of a heterogeneous batch on this backend.
 
         Same contract as :func:`repro_torch.core.blockwise.correct_batch`
-        (the ``batched`` backend); the ``local`` backend runs one loop per
-        tensor.  Tensors run where they lie; numpy arrays are copied to the
+        (the ``batched`` and ``sharded`` backends); the ``local`` backend runs
+        one loop per tensor.  Tensors run where they lie; numpy arrays are copied to the
         engine's device.  ``fft_impl`` overrides the engine default for this
         call; ``warm_freq`` optionally seeds each tensor's blocks with prior
         edit spectra (``(n_blocks_i, block//2+1)`` per tensor).
@@ -684,6 +814,8 @@ class CorrectionEngine:
                 fft_impl=fft_impl,
                 warm_freq=warm_freq,
                 device=self.device,
+                mesh=self.mesh if self.backend == "sharded" else None,
+                axis=self.axis,
             )
         except (RuntimeError, MemoryError) as e:
             raise classify_exception(e, "execute") from e
@@ -738,6 +870,7 @@ class CorrectionEngine:
             res, stats = blockwise.correct_packed(
                 packed, counts, E, Delta, max_iters=max_iters, backend=self.backend,
                 fft_impl=fft_impl, warm=warm, device=self.device,
+                mesh=self.mesh if self.backend == "sharded" else None, axis=self.axis,
             )
         except (RuntimeError, MemoryError) as e:
             raise classify_exception(e, "execute") from e

@@ -34,6 +34,15 @@ frequency streams (``EncodedEdits.half_spectrum`` clear) via the ``ifftn``
 branch of :meth:`FFCz.decompress`.  The wire format is the reference
 package's, byte for byte: blobs written by either package decode under the
 other.
+
+Sharded whole fields: :meth:`FFCz.compress` of a
+:class:`repro_torch.sharding.dist_fft.ShardedField` is a collective call
+that every rank of the field's mesh axis makes, and every rank returns the
+same blob: the field is gathered to each host (the base compressor and the
+edit encoder are host codecs), PLAN and the EXECUTE loop run sharded, and a
+blob of an uneven decomposition carries the optional ``FFCP`` section
+(:class:`PadMeta`).  :meth:`FFCz.decompress_sharded` decodes on the host and
+scatters the field to its slabs.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from repro_torch.core.engine import (
     float32_bound_discipline,
     polish_pocs_float64,
 )
+from repro_torch.sharding.dist_fft import ShardedField
 
 __all__ = [
     "BlobCorruptError",
@@ -64,6 +74,7 @@ __all__ = [
     "FFCzConfig",
     "FFCzStats",
     "PadMeta",
+    "ShardedField",
     "adaptive_quant_bits",
     "float32_bound_discipline",
     "polish_pocs_float64",
@@ -201,11 +212,13 @@ _CRC_SECTIONS = ("header", "base", "spat_edits", "freq_edits", "pointwise")
 @dataclasses.dataclass(frozen=True)
 class PadMeta:
     """Slab-decomposition provenance of a blob written from an uneven
-    sharded field by the reference package (its ``FFCP`` tail section).
+    :class:`~repro_torch.sharding.dist_fft.ShardedField` (mesh axis size and
+    padded shape): the optional ``FFCP`` tail section, byte for byte the
+    reference's.
 
     Purely informational: the edit streams are always encoded at the true
-    field extents, so decoding never needs this.  The port writes no sharded
-    blobs, but parses and re-writes the section so such blobs decode.
+    field extents, so decoding never needs this.  Its absence keeps evenly
+    decomposed and single-device blobs byte-identical to pre-pad writers.
     """
 
     n_dev: int
@@ -476,22 +489,30 @@ class FFCz:
 
     def compress(self, x) -> FFCzBlob:
         cfg = self.config
-        x32 = np.asarray(x, dtype=np.float32)
+        sharded = isinstance(x, ShardedField)
         clock = [time.perf_counter()]
+        x32 = x.to_host() if sharded else np.asarray(x, dtype=np.float32)
 
-        plan = self.engine.plan_field(x32, cfg)
+        plan = self.engine.plan_field(x if sharded else x32, cfg)
         clock.append(time.perf_counter())
         base_blob = self.base.compress(x32, plan.E_proj)
         x_hat = np.asarray(self.base.decompress(base_blob), dtype=np.float32)
         clock.append(time.perf_counter())
 
         eps0 = x_hat - x32
+        if sharded:
+            eps0 = ShardedField(eps0, x.mesh, x.axis_name, overlap_chunks=x.overlap_chunks)
         handle = self.engine.execute_field_async(eps0, plan)
         clock.append(time.perf_counter())
         result = handle.result()
         clock.append(time.perf_counter())
         se, fe = self.engine.encode_field(result, plan)
         clock.append(time.perf_counter())
+
+        # provenance of an uneven slab decomposition (ignored by decompress)
+        pad_meta = None
+        if sharded and x.padded_shape != x.shape:
+            pad_meta = PadMeta(n_dev=x.n_dev, padded_shape=x.padded_shape)
 
         blob = FFCzBlob(
             base_blob=base_blob,
@@ -501,6 +522,7 @@ class FFCz:
             Delta_scalar=plan.delta_scalar,
             pointwise_delta=plan.pointwise_bytes(),
             shape=plan.shape,
+            pad_meta=pad_meta,
             roi_bound=plan.roi_bytes(),
             crc=cfg.crc,
         )
@@ -606,6 +628,26 @@ class FFCz:
             freq_spatial = np.fft.ifftn(freq).real
         complete = spat + freq_spatial  # complete spatial edits (§IV-B)
         return (x_hat.astype(np.float64) + complete).astype(np.float32)
+
+    def decompress_sharded(
+        self,
+        blob: FFCzBlob,
+        mesh=None,
+        axis_name: str = "data",
+        parity="auto",
+    ) -> ShardedField:
+        """Decode a blob to a field slab-sharded over ``mesh[axis_name]``.
+
+        Decoding is host float64 (the stored bounds verify exactly only
+        there); the field is then scattered to its slabs, so ``to_host()``
+        is bitwise :meth:`decompress`.  Every rank of the axis decodes.
+        ``mesh=None`` takes a 1-D mesh over the default process group.  A
+        blob's :class:`PadMeta` is not consulted: the target decomposition
+        comes from ``mesh``, which need not match the writer's.  ``parity``
+        selects nothing (see :class:`ShardedField`).
+        """
+        x = self.decompress(blob)
+        return ShardedField.shard(x, mesh, axis_name=axis_name, parity=parity)
 
     def roundtrip(self, x):
         blob = self.compress(x)

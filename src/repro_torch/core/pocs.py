@@ -44,6 +44,18 @@ Shapes with an odd last axis fall back statically: ``"packed"`` to the plain
 transforms, ``"pallas"`` to the plain transforms + the fused fcube/scube
 kernels of the ``use_kernels`` path.
 
+Distributed pencil mode (``dist=DistSpec(...)``): every rank of the spec's
+process group runs the loop on its local slab, with the transforms replaced
+by the pencil-decomposed ones of :mod:`repro_torch.sharding.dist_fft`, and
+the pair-weighted violation count summed over the group by an int32
+``all_reduce`` on the checking iterations (so every rank sees the same count
+and takes the same branch).  Slab-pad rows are exactly zero and stay zero
+(clips and FFTs preserve zeros, the strict violation test never fires on
+one), so the body needs no pad mask.  As in the reference, ``dist`` mode
+takes ``fft_impl`` ``"xla"`` or ``"packed"`` (the pack trick on the local
+c2r pass) and scalar or pre-sharded pointwise bounds; ``"pallas"`` is
+refused (the fused epilogues mirror the whole spectrum on one device).
+
 In-place accumulation: the loop adds each iteration's displacements into the
 ``spat_edits`` / ``freq_edits`` tensors it owns (``add_``), which gives the
 same values as the reference's out-of-place sums.
@@ -146,8 +158,12 @@ def alternating_projection(
       check_slack: host scalar absolute allowance added to the convergence
         threshold (see :func:`repro_torch.kernels.fcube.ops.threshold_scalars`).
       use_rfft: run on the Hermitian half-spectrum (the fast path).
-      dist: distributed pencil mode is not ported (raises
-        ``NotImplementedError``; see ROADMAP.md).
+      dist: a :class:`repro_torch.sharding.dist_fft.DistSpec`: run on this
+        rank's slab (``eps0`` is the local block, slab-pad rows zero;
+        ``freq_edits`` the local half-spectrum block; a pointwise ``Delta``
+        the local half-spectrum block and a pointwise ``E`` the local
+        spatial block, both zero-padded to them).  Every rank of the spec's
+        group must call it.
       fft_impl: ``"xla"`` | ``"packed"`` | ``"pallas"`` (see module
         docstring); ``"pallas"`` needs ``use_rfft``, ``relax == 1.0`` and no
         ``use_kernels``.
@@ -161,10 +177,6 @@ def alternating_projection(
     Returns an :class:`AlternatingProjectionResult` whose tensors live on
     ``eps0``'s device.
     """
-    if dist is not None:
-        raise NotImplementedError(
-            "distributed pencil mode is not ported to repro_torch yet (see ROADMAP.md)"
-        )
     if fft_impl not in _FFT_IMPLS:
         raise ValueError(f"fft_impl must be one of {_FFT_IMPLS}, got {fft_impl!r}")
     if check_every < 1:
@@ -179,6 +191,10 @@ def alternating_projection(
             )
         if relax != 1.0:
             raise ValueError("fft_impl='pallas' supports only relax == 1.0")
+        if dist is not None:
+            raise ValueError("dist mode supports fft_impl 'xla' or 'packed' only")
+    if dist is not None and (use_kernels or not use_rfft):
+        raise ValueError("dist mode supports only the plain rfft path (no use_kernels, use_rfft=True)")
     dtype = eps0.dtype
     cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
     shape = tuple(eps0.shape)
@@ -191,12 +207,36 @@ def alternating_projection(
     else:
         tol1, slack = fcube_ops.threshold_scalars(_CHECK_TOL, check_slack)
 
-    packed_ok = fft_impl != "xla" and rfft_ops.supports_packed(shape)
+    packed_ok = fft_impl != "xla" and rfft_ops.supports_packed(dist.gshape if dist is not None else shape)
     pallas_fused = fft_impl == "pallas" and packed_ok
     if fft_impl == "pallas" and not packed_ok:
         use_kernels = True
     n_last = shape[-1] if shape else 1
-    if use_rfft:
+    if dist is not None:
+        from repro_torch.sharding import dist_fft
+
+        freq_shape = dist_fft.local_freq_shape(dist.gshape, dist.n_dev)
+        if isinstance(Delta_r, torch.Tensor) and tuple(Delta_r.shape) != freq_shape:
+            raise ValueError(
+                f"dist mode needs a scalar Delta or the local half-spectrum block "
+                f"{freq_shape}, got {tuple(Delta_r.shape)}"
+            )
+        if isinstance(E, torch.Tensor) and tuple(E.shape) != shape:
+            # pointwise spatial bounds (ROI grids) arrive pre-sharded in the
+            # padded local layout, like a pointwise Delta grid
+            raise ValueError(
+                f"dist mode needs a scalar E or the local spatial block {shape}, got {tuple(E.shape)}"
+            )
+        inv_impl = "packed" if packed_ok else "xla"
+        # the full-spectrum count is the pair-weighted sum of the local blocks'
+        weights = dist_fft.local_pair_weights(dist.gshape, freq_shape, dist.rank, eps0.device)
+
+        def fwd(e):
+            return dist_fft.rfftn_local(e, dist).to(cdtype).contiguous()
+
+        def inv(d):
+            return dist_fft.irfftn_local(d, dist, fft_impl=inv_impl).to(dtype).contiguous()
+    elif use_rfft:
         if isinstance(Delta_r, torch.Tensor) and tuple(Delta_r.shape) == shape:
             # full-spectrum pointwise grid: Hermitian-symmetric by contract,
             # so the rfft half-plane slice is exact
@@ -251,6 +291,11 @@ def alternating_projection(
 
         def count_violations(delta):
             vb = (torch.abs(delta.real) > dt) | (torch.abs(delta.imag) > dt)
+            if dist is not None:
+                # integer all-reduce of the pair-weighted local counts: the
+                # full-spectrum count, exactly
+                viol = torch.sum(vb.to(torch.int32) * weights).to(torch.int32).reshape(1)
+                return dist_fft.all_reduce_(viol, dist.group)[0]
             if use_rfft:
                 viol = 2 * torch.sum(vb) - torch.sum(vb[..., 0])
                 if has_nyquist:

@@ -3,6 +3,9 @@
 Tensor functions take torch tensors on any device (numpy arrays are
 converted on the CPU); :func:`shell_ratio_error` and
 :func:`power_spectrum_relative_error` are host float64 / numpy rechecks.
+:func:`power_spectrum` also accepts a slab-sharded
+:class:`repro_torch.sharding.dist_fft.ShardedField`, binning shells from the
+distributed half-spectrum without gathering the field.
 """
 
 from __future__ import annotations
@@ -25,7 +28,14 @@ def power_spectrum(x) -> Tuple[torch.Tensor, torch.Tensor]:
     ``u^2 + v^2 + w^2 = k^2``.
 
     Returns (k values, P(k)) with ``k in [0, floor(min(N)/2)]``.
+
+    A :class:`~repro_torch.sharding.dist_fft.ShardedField` goes to
+    :func:`power_spectrum_sharded` (same semantics, a collective call).
     """
+    from repro_torch.sharding.dist_fft import ShardedField
+
+    if isinstance(x, ShardedField):
+        return power_spectrum_sharded(x)
     x = _t(x)
     mean = torch.mean(x)
     xp = (x - mean) / torch.where(mean == 0, torch.ones_like(mean), mean)
@@ -41,6 +51,58 @@ def power_spectrum(x) -> Tuple[torch.Tensor, torch.Tensor]:
     pk = torch.zeros(k_max + 1, dtype=power.dtype, device=x.device)
     pk.index_add_(0, torch.clamp(shell, 0, k_max).reshape(-1), contrib.reshape(-1))
     return torch.arange(k_max + 1, device=x.device), pk
+
+
+def power_spectrum_sharded(field) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`power_spectrum` of a slab-sharded field, never gathered.
+
+    Every rank of the field's axis calls it and gets the whole ``P(k)``.
+    The mean is one float32 ``all_reduce`` of the slab sums over the TRUE
+    element count; the slab-pad rows, which the normalization would turn
+    into ``-1``, are masked back to zero before the distributed rfftn.
+    Conjugate-pair multiplicities recover full-spectrum shell power, shell
+    indices come from global frequency coordinates (the rank's offset on
+    the sharded axis), pad rows and columns of the half-spectrum are
+    excluded, and one ``all_reduce`` of the ``(k_max + 1,)`` histogram merges
+    the ranks.  Shell sums re-associate across world sizes, so this matches
+    the gathered :func:`power_spectrum` to float tolerance, as in the
+    reference (a metric, not a bound).
+    """
+    from repro_torch.sharding import dist_fft
+
+    spec = field.dist_spec
+    gshape, nd, local = field.gshape, field.ndim, field.local
+    dev = local.device
+    k_max = min(gshape) // 2
+    total = dist_fft.all_reduce_(torch.sum(local).reshape(1), field.group)[0]
+    mean = total / torch.tensor(float(np.prod(gshape)), dtype=local.dtype, device=dev)
+    xp = (local - mean) / torch.where(mean == 0, torch.ones_like(mean), mean)
+    row = field.rank * local.shape[0] + torch.arange(local.shape[0], device=dev)
+    xp = torch.where((row < gshape[0]).reshape((-1,) + (1,) * (nd - 1)), xp, torch.zeros_like(xp))
+    Xh = dist_fft.rfftn_local(xp, spec)
+    w = dist_fft.local_pair_weights(gshape, tuple(Xh.shape), field.rank, dev)
+    power = (torch.abs(Xh) ** 2) * w.to(torch.float32)
+    sharded_axis = 0 if nd == 3 else nd - 1
+    coords, pad_ok = [], torch.ones((), dtype=torch.bool, device=dev)
+    for a in range(nd):
+        idx = torch.arange(Xh.shape[a], device=dev)
+        if a == sharded_axis:
+            idx = idx + field.rank * Xh.shape[a]
+            n_true = gshape[0] if nd == 3 else gshape[-1] // 2 + 1
+            shape_a = [1] * nd
+            shape_a[a] = -1
+            pad_ok = pad_ok & (idx < n_true).reshape(shape_a)
+            idx = torch.clamp(idx, max=n_true - 1)
+        # power_spectrum's fftshift: bin k sits at signed frequency
+        # ((k + n//2) % n) - n//2 (the half axis: k itself, or -n/2)
+        coords.append(((idx + gshape[a] // 2) % gshape[a]) - gshape[a] // 2)
+    grids = torch.meshgrid(*coords, indexing="ij")
+    r = torch.sqrt(sum(g.to(torch.float32) ** 2 for g in grids))
+    shell = torch.round(r).to(torch.int64)
+    power = torch.where(pad_ok & (shell <= k_max), power, torch.zeros_like(power))
+    pk = torch.zeros(k_max + 1, dtype=power.dtype, device=dev)
+    pk.index_add_(0, torch.clamp(shell, 0, k_max).reshape(-1), power.reshape(-1))
+    return torch.arange(k_max + 1, device=dev), dist_fft.all_reduce_(pk, field.group)
 
 
 def ssnr(X_hat: torch.Tensor, X: torch.Tensor) -> torch.Tensor:

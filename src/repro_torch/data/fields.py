@@ -62,3 +62,20 @@ def _spots(shape, rng, n_spots: int = 60) -> np.ndarray:
         r2 = sum((g - ci) ** 2 for g, ci in zip(grids, c))
         f += rng.uniform(0.5, 5.0) * np.exp(-r2 / 2.0).astype(np.float32)
     return f
+
+
+def error_pencils(device, rows: int, block: int, seed: int = 3):
+    """``rows`` pencils of ``block`` quantization-like errors for the pencil
+    engines, made on ``device`` from ``seed``: ``(errors, Es, Deltas)``.
+
+    Three tensors (uniform in +-E for E = 1, 0.5, 2; the second not a whole
+    number of pencils), each with a Delta of three standard deviations of a
+    pencil's spectrum components, so that most pencils need correcting.
+    """
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sizes = (rows // 2 * block, rows // 4 * block + 100, (rows - rows // 2 - rows // 4 - 1) * block)
+    Es = (1.0, 0.5, 2.0)
+    errs = [(2 * torch.rand(n, generator=gen, device=device) - 1) * E for n, E in zip(sizes, Es)]
+    return errs, list(Es), [3.0 * E * (block / 6) ** 0.5 for E in Es]

@@ -19,7 +19,7 @@ reference's ``"xla"``; pass ``CorrectionEngine(fft_impl="pallas")`` for the
 per-pencil kernels).
 
 ``make_step`` (step functions with their shardings over a mesh) needs a
-mesh and is not ported (ROADMAP.md Queue 1, slice 6).
+mesh and is not ported (ROADMAP.md Queue 1, item 5d).
 """
 
 from __future__ import annotations
@@ -80,5 +80,5 @@ def make_serve_step(bundle: ModelBundle):
 def make_step(cfg, shape_id: str, mesh, optimizer=None):
     raise NotImplementedError(
         "make_step builds step functions over a device mesh, which is not ported to repro_torch yet "
-        "(ROADMAP.md Queue 1, slice 6)"
+        "(ROADMAP.md Queue 1, item 5d)"
     )

@@ -219,7 +219,7 @@ def attention_apply(
     Returns (output (b,s,d_model), the cache with pos advanced, or None).
     """
     if mesh_axes:
-        raise NotImplementedError("mesh sharding is not ported (ROADMAP.md Queue 1, slice 5)")
+        raise NotImplementedError("mesh sharding is not ported (ROADMAP.md Queue 1, item 5d)")
     b, s = x.shape[0], x.shape[1]
     scale = 1.0 / float(head_dim) ** 0.5
     new_cache = None

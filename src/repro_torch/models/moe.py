@@ -160,7 +160,7 @@ def moe_apply(params: Mapping, x: torch.Tensor, *, top_k: int, capacity_factor: 
               mesh_axes: tuple = ()) -> torch.Tensor:
     """x: (b, s, d) -> (b, s, d)."""
     if mesh_axes:
-        raise NotImplementedError("expert-parallel sharding is not ported (ROADMAP.md Queue 1, item 4)")
+        raise NotImplementedError("expert-parallel sharding is not ported (ROADMAP.md Queue 1, item 5d)")
     b, s, d = x.shape
     e_pad = params["w_gate"].shape[0]
     tokens = x.reshape(-1, d)

@@ -4,7 +4,7 @@
 tensor mapping, or the reference's nested parameter tree; see
 :mod:`repro_torch.tree`), in the reference's order of float32 operations:
 global-norm clip, bias correction, the clamp of ``v`` at zero.  Sharding
-(``state_pspecs``) is not ported (ROADMAP.md Queue 1, item 5).
+(``state_pspecs``) is not ported (ROADMAP.md Queue 1, item 5d).
 """
 
 from __future__ import annotations

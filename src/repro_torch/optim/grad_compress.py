@@ -15,8 +15,11 @@ N * E * 2^-bits.  The correction can therefore act only when
 ``Delta_rel < 2^-bits`` (at the defaults, bits = 8 and Delta_rel = 1e-2, it
 never does: ROADMAP.md Queue 3).
 
-``compressed_psum`` (the integer-code all-reduce) needs a process group and
-is not ported (ROADMAP.md Queue 1, item 4).
+``compressed_psum`` is the explicit collective form: every rank of a mesh
+axis quantizes its tensor to int32 codes on one shared grid, the *codes* are
+all-reduced (an integer sum is exact, so no quantization noise accumulates
+across ranks beyond the single quantizer's bound), and every rank gets the
+dequantized mean.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.core.engine import CorrectionEngine, default_engine
@@ -96,9 +100,22 @@ def compress_gradients(
     return tree.unflatten(treedef, out)
 
 
-def compressed_psum(x, mesh, axis: str = "data", *, bits: int = 8, E_rel: float = 1e-2):
-    """The integer-code all-reduce under a device mesh: not ported."""
-    raise NotImplementedError(
-        "compressed_psum needs a process group and is not ported to repro_torch yet "
-        "(ROADMAP.md Queue 1, item 4)"
-    )
+def compressed_psum(x: torch.Tensor, mesh=None, axis: str = "data", *, bits: int = 8, E_rel: float = 1e-2):
+    """Integer-code all-reduce over ``mesh[axis]``: the dequantized mean.
+
+    ``x`` is this rank's tensor (every rank passes one of the same shape).
+    The grid's step comes from the largest ``|x|`` over the ranks (an
+    all-reduce MAX), ``2 E_rel max|x| / 2^bits``; the int32 codes are summed
+    by an all-reduce and the mean dequantized, in the reference's float32
+    order of operations.  ``mesh=None`` takes a 1-D mesh over the default
+    process group (``ValueError`` when none is initialized).
+    """
+    from repro_torch.sharding import dist_fft
+
+    group, n_dev, _ = dist_fft.mesh_axis(dist_fft.default_mesh(axis) if mesh is None else mesh, axis)
+    v32 = x.to(torch.float32)
+    gmax = dist_fft.all_reduce_(torch.max(torch.abs(v32)).reshape(1), group, dist.ReduceOp.MAX)[0]
+    step = torch.clamp_min(_f32(2.0 * E_rel, x.device) * gmax / _f32(2.0**bits, x.device), 1e-30)
+    codes = torch.round(v32 / step).to(torch.int32)
+    total = dist_fft.all_reduce_(codes, group)
+    return (total.to(torch.float32) * step / _f32(float(n_dev), x.device)).to(x.dtype)

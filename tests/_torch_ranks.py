@@ -1,0 +1,305 @@
+"""gloo ranks for the port's multi-rank CPU tests (no JAX here).
+
+:func:`run_worlds` starts one group of spawned processes per world size, all
+at once, each rank running a module-level body of this file in a gloo
+process group (``file://`` init under the caller's directory) and pickling
+what the body returns; it returns ``{world: [result of rank 0, 1, ...]}``.
+Every group is joined under its own deadline and killed on expiry, so a hung
+collective fails the tests that read it instead of the whole run.
+
+The bodies build their inputs from fixed seeds, so every rank of every world
+size sees the same field; the test modules hold the results against each
+other, against a single-process computation and against the reference.
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+import os
+import pickle
+import time
+import traceback
+
+import numpy as np
+
+# transforms: 3-D and 2-D, even and uneven slabs at 2 and 4 ranks, both
+# parity classes, axes shorter than the rank count, odd last axes
+FFT_SHAPES = [(16, 8, 12), (16, 8, 10), (12, 10, 14), (10, 6, 9), (5, 3, 7), (2, 16, 10), (16, 2, 6),
+              (24, 30), (30, 48), (9, 7), (32, 62)]
+
+# whole-field codec: "bitwise" even and uneven (2 rows over 4 ranks),
+# "bound" uneven, and 2-D of both classes (13 and 10 half columns: uneven)
+CODEC_SHAPES = [(16, 8, 12), (2, 16, 10), (9, 8, 10), (32, 24), (12, 18)]
+PSPEC_SHAPES = [(16, 8, 12), (9, 8, 10), (12, 18)]
+
+
+def codec_field(shape, seed=3):
+    """A positive field with a spectrum (mean near 1), float32."""
+    rng = np.random.default_rng(seed)
+    return (1.0 + 0.5 * rng.standard_normal(shape)).astype(np.float32)
+
+
+def codec_configs(shape):
+    """name -> FFCzConfig keyword arguments of the codec cases."""
+    n = int(np.prod(shape))
+    mask = np.zeros(shape, dtype=bool)
+    mask[tuple(slice(s // 4, max(s // 4 + 1, 3 * s // 4)) for s in shape)] = True
+    return {
+        "Delta_abs": dict(E_abs=0.02, E_rel=None, Delta_abs=0.2 * 0.02 * np.sqrt(n), Delta_rel=None),
+        "Delta_rel": dict(E_rel=1e-2, Delta_rel=1e-3),
+        "pspec_rel": dict(E_rel=1e-2, Delta_rel=None, pspec_rel=1e-2),
+        "E_roi": dict(E_rel=1e-2, Delta_rel=1e-3, E_roi=mask),
+        "packed": dict(E_rel=1e-2, Delta_rel=1e-3, fft_impl="packed"),
+        "warm_check_every": dict(E_rel=1e-2, Delta_rel=1e-3, check_every=3),
+    }
+
+
+def backend_tensors(scale=1.0):
+    """The reference's sharded-backend batch: 5 + 3 + 1 = 9 blocks of 512."""
+    rng = np.random.default_rng(7)
+    return [
+        (rng.standard_normal(2500) * 0.02 * scale).astype(np.float32),
+        (rng.standard_normal((32, 48)) * 0.01 * scale).astype(np.float32),
+        (rng.standard_normal(100) * 0.01 * scale).astype(np.float32),
+    ]
+
+
+BACKEND_E, BACKEND_D = [0.03, 0.02, 0.05], [0.4, 0.5, 0.2]
+
+
+def psum_inputs(rank, n=4097):
+    """Rank ``rank``'s gradient shard: (one with the same planted max on
+    every rank, one whose max differs by rank)."""
+    rng = np.random.default_rng(100 + rank)
+    same = rng.standard_normal(n).astype(np.float32)
+    same[7] = np.float32(8.0)
+    other = (rng.standard_normal(n) * (1 + rank)).astype(np.float32)
+    return same, other
+
+
+def _mesh(world):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _outside_is_zero(a, true_shape):
+    """Every entry of ``a`` outside its leading ``true_shape`` block is 0."""
+    outside = np.ones(a.shape, dtype=bool)
+    outside[tuple(slice(0, t) for t in true_shape)] = False
+    return bool((a[outside] == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# rank bodies
+
+
+def body_transforms(rank, world):
+    """pencil_rfftn / pencil_irfftn of every FFT_SHAPES field, gathered."""
+    import torch
+
+    from repro_torch.sharding import dist_fft
+
+    mesh = _mesh(world)
+    out = {}
+    for i, shape in enumerate(FFT_SHAPES):
+        x = np.random.default_rng(i).standard_normal(shape).astype(np.float32)
+        spectra = []
+        for chunks in (1, 2, 3):
+            field = dist_fft.ShardedField.shard(x, mesh, overlap_chunks=chunks)
+            local = dist_fft.pencil_rfftn(field)
+            assert tuple(local.shape) == field.local_freq_shape
+            padded = dist_fft.gather_to_host(local, field.group, world, field.freq_axis)
+            spectra.append(field.freq_to_host(local))
+        X = spectra[1]
+        inv = dist_fft.pencil_irfftn(X, shape, mesh)
+        foreign = np.pad(X, [(0, p - t) for p, t in zip(dist_fft.padded_freq_shape(shape, 8), X.shape)])
+        packed = dist_fft.irfftn_local(field.to_local(field.pad_freq_np(X), freq=True), field.dist_spec,
+                                       fft_impl="packed")
+        # a parity request selects nothing: the same slab, spectrum and
+        # inverse whatever is asked, and the reference's class reported
+        inert = True
+        for p in ("auto", "bitwise", "bound"):
+            asked = dist_fft.ShardedField.shard(x, mesh, parity=p)
+            inert &= torch.equal(asked.local, field.local) and torch.equal(dist_fft.pencil_rfftn(asked), local)
+            inert &= np.array_equal(dist_fft.pencil_irfftn(X, shape, mesh, parity=p).to_host(), inv.to_host())
+            inert &= asked.parity == dist_fft.classify_parity(shape, world)
+        out[shape] = {
+            "parity_inert": bool(inert),
+            "X": X,
+            "chunking_neutral": all(np.array_equal(s, X) for s in spectra),
+            "pad_zero": _outside_is_zero(padded, X.shape),
+            "inverse": inv.to_host(),
+            "inverse_local_pad_zero": _outside_is_zero(dist_fft.gather_to_host(inv.local, inv.group, world), shape),
+            "inverse_foreign_layout": dist_fft.pencil_irfftn(foreign, shape, mesh).to_host(),
+            "inverse_packed": field.spatial_to_host(packed),
+            "to_host": field.to_host(),
+        }
+    return out
+
+
+def body_sharded(rank, world):
+    """The codec, the sharded backend, the spectrum, compressed_psum and
+    elastic re-planning on one process group."""
+    import torch
+
+    from repro_torch.compressors import get_compressor
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.core.ffcz import FFCz, FFCzConfig
+    from repro_torch.core.spectrum import power_spectrum
+    from repro_torch.optim import compressed_psum
+    from repro_torch.runtime.elastic import replan_mesh
+    from repro_torch.sharding import ShardedField, classify_parity
+
+    mesh = _mesh(world)
+    out = {"codec": {}, "pspec": {}, "backend": {}}
+    for shape in CODEC_SHAPES:
+        x = codec_field(shape)
+        for name, kw in codec_configs(shape).items():
+            codec = FFCz(get_compressor("szlike"), FFCzConfig(**kw), device="cpu")
+            blob = codec.compress(ShardedField.shard(x, mesh))
+            back = codec.decompress_sharded(blob, mesh)
+            out["codec"][(shape, name)] = {
+                "bytes": blob.to_bytes(),
+                "payload": blob.payload_bytes(),
+                "iterations": blob.stats.iterations,
+                "converged": blob.stats.converged,
+                "margins": (blob.stats.spatial_margin, blob.stats.frequency_margin),
+                "sharded_decode_bitwise": bool(np.array_equal(back.to_host(), codec.decompress(blob))),
+            }
+            if name == "warm_check_every":
+                # warm start: the next frame's loop seeded from this one's spectrum
+                engine = codec.engine
+                cfg = FFCzConfig(warm_start=True, **kw)
+                field = ShardedField.shard(x * np.float32(1.01), mesh)
+                plan = engine.plan_field(field, cfg)
+                eps0 = codec.base.decompress(codec.base.compress(field.to_host(), plan.E_proj)) - field.to_host()
+                cold = engine.execute_field(ShardedField.shard(eps0, mesh), plan)
+                warm = engine.execute_field(ShardedField.shard(eps0, mesh), plan, warm_freq=cold.freq)
+                out["codec"][(shape, "warm")] = {"cold": (cold.eps, cold.iterations),
+                                                 "warm": (warm.eps, warm.freq, warm.iterations, warm.converged)}
+    for shape in PSPEC_SHAPES:
+        field = ShardedField.shard(codec_field(shape, seed=5), mesh)
+        k, pk = power_spectrum(field)
+        out["pspec"][shape] = (_np(k), _np(pk))
+
+    tensors = backend_tensors()
+    for impl in ("xla", "packed", "pallas"):
+        for block in (512, 511):
+            sharded = CorrectionEngine(backend="sharded", mesh=mesh, fft_impl=impl)
+            batched = CorrectionEngine(backend="batched", fft_impl=impl, device="cpu")
+            case = {}
+            for label, engine in (("sharded", sharded), ("batched", batched)):
+                corr, edits, stats = engine.correct(tensors, BACKEND_E, BACKEND_D, block=block, return_edits=True)
+                warm = [f for _, f in edits]
+                wcorr, wedits, wstats = engine.correct(backend_tensors(1.05), BACKEND_E, BACKEND_D, block=block,
+                                                       return_edits=True, warm_freq=warm)
+                handle = engine.correct_async(tensors, BACKEND_E, BACKEND_D, block=block)
+                acorr, astats = handle.result()
+                case[label] = {
+                    name: [_np(t) for t in ts] for name, ts in (
+                        ("corrected", corr), ("spat", [s for s, _ in edits]), ("freq", [f for _, f in edits]),
+                        ("warm_corrected", wcorr), ("warm_freq", [f for _, f in wedits]),
+                        ("async_corrected", acorr),
+                        ("stats", [stats.iterations, stats.converged, stats.block_iterations,
+                                   stats.block_converged]),
+                        ("warm_stats", [wstats.iterations, wstats.converged, wstats.block_iterations,
+                                        wstats.block_converged]),
+                        ("async_stats", [astats.block_iterations, astats.block_converged]))
+                }
+            out["backend"][(impl, block)] = case
+
+    # what the sharded whole-field loop refuses, as the reference does
+    out["refusals"] = {}
+    x = codec_field(CODEC_SHAPES[0])
+    for label, kw in (("pallas", dict(fft_impl="pallas")), ("use_kernels", dict(use_kernels=True))):
+        codec = FFCz(get_compressor("szlike"), FFCzConfig(E_rel=1e-2, Delta_rel=1e-3, **kw), device="cpu")
+        try:
+            codec.compress(ShardedField.shard(x, mesh))
+            out["refusals"][label] = None
+        except ValueError as e:
+            out["refusals"][label] = str(e)
+    # a parity request selects nothing: packed blobs of a "bound"-class
+    # shape under each request, byte for byte the same
+    bound_shape = next(s for s in CODEC_SHAPES if classify_parity(s, world) == "bound")
+    codec = FFCz(get_compressor("szlike"), FFCzConfig(E_rel=1e-2, Delta_rel=1e-3, fft_impl="packed"),
+                 device="cpu")
+    out["parity_payloads"] = [codec.compress(ShardedField.shard(codec_field(bound_shape), mesh, parity=p))
+                              .payload_bytes() for p in ("auto", "bitwise", "bound")]
+
+    same, other = psum_inputs(rank)
+    out["psum"] = {"same": _np(compressed_psum(torch.from_numpy(same), mesh)),
+                   "other": _np(compressed_psum(torch.from_numpy(other), mesh, bits=6, E_rel=0.05))}
+    replanned = replan_mesh(preferred_model=2)
+    out["elastic"] = (tuple(replanned.shape), tuple(replanned.mesh_dim_names))
+    return out
+
+
+BODIES = {"transforms": body_transforms, "sharded": body_sharded}
+
+
+# ---------------------------------------------------------------------------
+# the launcher
+
+
+def _entry(rank, world, init_file, out_file, body):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+        try:
+            result = {"ok": BODIES[body](rank, world)}
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result = {"error": traceback.format_exc()}
+    with open(out_file, "wb") as f:
+        pickle.dump(result, f)
+
+
+def run_worlds(body: str, worlds, directory, timeout: float = 120.0):
+    """Run ``body`` at each world size of ``worlds``, every group at once;
+    ``{world: [rank results]}``, or ``{world: "error text"}`` for a group
+    that failed or outran ``timeout`` seconds (its processes killed)."""
+    ctx = multiprocessing.get_context("spawn")
+    groups = {}
+    for world in worlds:
+        base = os.path.join(str(directory), f"{body}_{world}")
+        os.makedirs(base, exist_ok=True)
+        procs = [ctx.Process(target=_entry, args=(r, world, os.path.join(base, "init"),
+                                                   os.path.join(base, f"rank{r}.pkl"), body), daemon=True)
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        groups[world] = (base, procs, time.monotonic() + timeout)
+    results = {}
+    for world, (base, procs, deadline) in groups.items():
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
+        if hung:
+            results[world] = f"{len(hung)} of {world} ranks still running after {timeout} s (killed)"
+            continue
+        ranks = []
+        for r in range(world):
+            path = os.path.join(base, f"rank{r}.pkl")
+            if not os.path.exists(path):
+                ranks = f"rank {r} wrote no result (exit code {procs[r].exitcode})"
+                break
+            with open(path, "rb") as f:
+                got = pickle.load(f)
+            if "error" in got:
+                ranks = f"rank {r} failed:\n{got['error']}"
+                break
+            ranks.append(got["ok"])
+        results[world] = ranks
+    return results

@@ -210,7 +210,7 @@ def test_bad_inputs_raise_like_the_reference():
         t_bw.correct_batch(t, [1.0, 2.0], 1.0, block=8)
     with pytest.raises(ValueError, match="warm spectra"):
         t_bw.correct_batch(t, 1.0, 1.0, block=8, warm_freq=[])
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(ValueError, match="mesh"):
         t_bw.correct_batch(t, 1.0, 1.0, block=8, backend="sharded")
     assert t_bw.correct_batch([], 1.0, 1.0, device="cpu")[0] == []
 

@@ -104,3 +104,25 @@ def test_model_module_name_is_ported(module, name, port_name):
     assert callable(getattr(importlib.import_module(f"repro.{module}"), name))
     obj = getattr(importlib.import_module(f"repro_torch.{module}"), port_name)
     assert callable(obj) and obj.__module__.startswith("repro_torch.")
+
+
+#: the distribution names of the reference's ``repro.sharding`` (its
+#: ``dist_fft`` half; ``rules.py`` belongs to ROADMAP Queue 1 item 5d) and of
+#: ``repro.runtime.elastic``, with the port module that carries them
+DIST_NAMES = ([("sharding", n) for n in ("DistSpec", "ShardedField", "classify_parity", "pencil_rfftn",
+                                          "pencil_irfftn", "validate_pencil_shape")]
+              + [("sharding.dist_fft", n) for n in _defined_in("repro.sharding.dist_fft")]
+              + [("runtime.elastic", n) for n in _defined_in("repro.runtime.elastic")]
+              + [("optim", "compressed_psum"), ("core.spectrum", "power_spectrum_sharded"),
+                 ("core.ffcz", "ShardedField")])
+
+
+@pytest.mark.parametrize("module,name", DIST_NAMES, ids=[f"{m}.{n}" for m, n in DIST_NAMES])
+def test_distribution_name_is_ported(module, name):
+    ref = getattr(importlib.import_module(f"repro.{module}"), name)
+    port_module = importlib.import_module(f"repro_torch.{module}")
+    obj = getattr(port_module, name)
+    assert callable(obj) == callable(ref)
+    assert obj.__module__.startswith("repro_torch.")
+    if module == "sharding":
+        assert name in port_module.__all__

@@ -991,3 +991,48 @@ def test_one_training_step_per_family_on_the_card(arch, tmp_path):
     odd = any(min(4096, t.numel()) % 2 for t in tree.leaves(card.state()[0]) if t.numel() >= 2)
     assert (launched.get("fcube_rows", 0) > 0) == (launched.get("scube_rows", 0) > 0) == odd
     assert not {"rfft_fwd_epilogue", "unpack_sclip", "fcube", "scube"} & set(launched), launched
+
+
+@pytest.mark.gpu
+def test_sharded_paths_at_world_size_one(tmp_path):
+    """The distribution on one card, through the code the CPU's gloo ranks
+    run (tests/test_torch_sharded.py): a one-rank NCCL group, a packed
+    sharded compress whose stored bounds hold in float64 and whose
+    ``decompress_sharded`` is bitwise ``decompress``, and a pallas sharded
+    pencil engine bitwise the batched one, through kernels 3p/4p."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.sharding import ShardedField
+
+    dev = _cuda()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'init'}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        x = (1.0 + 0.5 * np.random.default_rng(3).standard_normal((32, 16, 24))).astype(np.float32)
+        codec = FFCz(get_compressor("szlike"), FFCzConfig(E_rel=1e-2, Delta_rel=1e-3, fft_impl="packed"),
+                     device=dev)
+        blob = codec.compress(ShardedField.shard(x, mesh))
+        dec = codec.decompress(blob)
+        eps = dec.astype(np.float64) - x
+        d = np.fft.rfftn(eps)
+        assert blob.stats.converged and np.abs(eps).max() <= blob.E
+        assert np.maximum(np.abs(d.real), np.abs(d.imag)).max() <= blob.Delta_scalar
+        assert np.array_equal(codec.decompress_sharded(blob, mesh).to_host(), dec)
+
+        rng = np.random.default_rng(7)
+        errs = [torch.from_numpy((rng.uniform(-1, 1, n) * E).astype(np.float32)).to(dev)
+                for n, E in ((2500, 0.03), (1536, 0.02), (100, 0.05))]
+        Es, Ds = [0.03, 0.02, 0.05], [0.03 * 27, 0.02 * 27, 0.05 * 27]
+        want = CorrectionEngine(fft_impl="pallas", device=dev).correct(errs, Es, Ds, block=512, return_edits=True)
+        before = dict(t_rfft.launches)
+        got = CorrectionEngine(backend="sharded", fft_impl="pallas", mesh=mesh).correct(
+            errs, Es, Ds, block=512, return_edits=True)
+        assert all(t_rfft.launches[k] > before[k] for k in ("rfft_fwd_epilogue_rows", "unpack_sclip_rows"))
+        assert _same(got[0], want[0])
+        assert all(_same(a, b) for a, b in zip(got[1], want[1]))
+        assert _same([got[2].block_iterations, got[2].block_converged],
+                     [want[2].block_iterations, want[2].block_converged])
+    finally:
+        dist.destroy_process_group()

@@ -124,8 +124,10 @@ def test_warm_start_and_pointwise_E():
 
 def test_loop_rejects_what_the_reference_rejects():
     eps0 = torch.zeros((8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        alternating_projection(eps0, 1.0, 1.0, dist=object())
+    from repro_torch.sharding.dist_fft import DistSpec
+
+    with pytest.raises(ValueError, match="dist mode"):
+        alternating_projection(eps0, 1.0, 1.0, dist=DistSpec("data", (8, 8), 1), fft_impl="pallas")
     with pytest.raises(ValueError, match="relax"):
         alternating_projection(eps0, 1.0, 1.0, fft_impl="pallas", relax=1.5)
     with pytest.raises(ValueError, match="use_kernels"):
@@ -218,8 +220,8 @@ def test_plan_conversion_round_trips_roi():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 5"):
-        CorrectionEngine(backend="sharded", device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        CorrectionEngine(backend="sharded", device="cpu").mesh
     for backend in ("local", "batched"):
         assert CorrectionEngine(backend=backend, device="cpu").backend == backend
 

@@ -8,7 +8,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``
 card at the main path's shapes, then drives ``FFCz.compress`` /
 ``FFCz.decompress`` with ``FFCzConfig(fft_impl="pallas")`` at full size and
 rechecks both stored bounds in float64, drives the qwen2-0.5b dense LM at
-full width (``ModelBundle.loss``, ``ServingEngine``, ``Trainer``), the moe,
+full width (``ModelBundle.loss``, ``ServingEngine``, ``Trainer`` on one
+device and over a one-rank data mesh), the moe,
 ssm, hybrid, vlm and audio LM families at full width (``ModelBundle.loss``,
 ``ServingEngine``, and ``Trainer`` at cut depths), and the FFCz service path
 (temporal streams, ``FFCzService``, session recovery).
@@ -99,6 +100,17 @@ Phases, one JSON line each (or more):
               resumes at step 2 and ends at the uninterrupted run's loss
               (rtol 1e-4): step seconds, tokens/s, compress seconds, losses,
               peak device memory
+  train_mesh  the same 12-layer qwen2-0.5b (4x2048 tokens a step) trained 2
+              steps by Trainer(mesh=make_mesh((1, 1), ("data", "model"))) on
+              a one-rank NCCL group: the rules' FSDP placements, the
+              segment-wise step, the gradients compressed over the mesh
+              through a pallas engine (kernels 3p/4p, first calls held
+              bitwise): losses and every parameter bitwise a one-device
+              Trainer's steps with the same engine, one ulp planted in a
+              shard caught; step and compress seconds, peak memory, the
+              state bytes held against the rules' share.  Not shown on one
+              card: more than one rank (CPU gloo tests at 2 and 4;
+              examples/train_mesh_torch.py on 4 cards)
   grad_pallas one step's gradients (315 M values) through compress_gradients
               with the pallas engine (kernels 3 and 4 per pencil) and the
               xla engine, every pencil rechecked in float64 on the host
@@ -106,9 +118,11 @@ Phases, one JSON line each (or more):
               kernels 3 and 4 at each pencil length they run against the
               twins (bitwise)
   checkpoint  CheckpointManager + CheckpointCodec(enabled=True, pallas
-              engine) on a trained (params, opt_state) at full width, 2
-              layers deep; a new Trainer restores it (B leaves within their
-              stored E and Delta in float64, R leaves bitwise) and steps
+              engine) on a trained (params, opt_state) of whisper-tiny at
+              full width and depth (4 + 4 layers, 4 x 448 tokens a step;
+              in place of qwen2-0.5b at 2 layers, CUTS); a new Trainer
+              restores it (B leaves within their stored E and Delta in
+              float64, R leaves bitwise) and steps
   train_family  Trainer on granite-moe-3b-a800m (8 of 32 layers), mamba2-2.7b
               (16 of 64), zamba2-7b (12 of 81: two groups, the shared block
               called twice), llava-next-mistral-7b (4 of 32; 2 rows of 2880
@@ -179,6 +193,10 @@ builds the kernels and runs phase train_family alone, with its gates.
     python3 chip_smoke.py --sharded
 
 builds the kernels and runs phase sharded alone, with its gates.
+
+    python3 chip_smoke.py --train-mesh
+
+builds the kernels and runs phase train_mesh alone, with its gates.
 """
 
 from __future__ import annotations
@@ -210,10 +228,11 @@ CUTS = ["phase 6's pspec_rel case at 64^3 and its E_roi case at 128^3, instead o
         "width kept (a cut for time): at full depth the phase took 101 s, and with the vlm and audio families "
         "the script reached 1184 s of its 1200 on an NVIDIA H100 80GB HBM3 machine at 700 W (host stages "
         "spread ~10 % between calls)",
-        "phase checkpoint at 2 of 24 layers, every width kept (a cut for time): the base codec, float64 "
-        "polish and zlib run on the host, the tied embedding is in the state three times (params, m, v), "
-        "and the 2-layer state (0.47 G values to compress) takes about 250 s to save on an H100 machine's "
-        "8 host cores; the full-depth state is 1.48 G values",
+        "phase checkpoint on whisper-tiny at full width and depth (0.12 G values of state to compress) "
+        "instead of qwen2-0.5b at 2 of 24 layers (0.47 G values; a cut for time): the base codec, float64 "
+        "polish and zlib run on the host, qwen2's tied embedding is in the state three times (params, m, v), "
+        "and its save took 262.8-302.7 s of the phase's 302.9-348.0 in three runs of this script on NVIDIA "
+        "H100 80GB HBM3 machines at 700 W, which read 1141.7-1198.3 s of the 1200 allowed",
         "phase stream_field's frames at 128^3 instead of the 256^3 of phases 4-5 (a cut for time): a 256^3 "
         "frame costs 32-42 s of host float64 polish, and the phase encodes 13 frames",
         "phase stream_field at 5 frames a run (warm, cold) and 3 cropped, not 8 and 4, and phase stream_eeg at "
@@ -1505,6 +1524,9 @@ def phase_lm_family(dev, records, arch, cfg=None, tokens=(4, 2048), prompts=(4, 
     return cfg, params, summary
 
 
+# phase checkpoint's tokens a step (whisper-tiny: its decoder's 448
+# positions; the frames are its 1500 encoder positions)
+CHECKPOINT_TOKENS = (4, 448)
 # checkpoints of the train and checkpoint phases: under build/ (ignored by
 # git), removed when each phase ends
 WORK_DIR = ROOT / "build" / "chip_smoke_ckpt"
@@ -2136,9 +2158,9 @@ def parse_b_header(data):
 def phase_checkpoint(dev, records, cfg=None, tokens=(4, 2048), n_layers=2):
     """A ``CheckpointManager`` with ``CheckpointCodec(enabled=True,
     engine=CorrectionEngine(fft_impl="pallas"))`` (the reference's codec
-    defaults) saves a trained (params, opt_state) of qwen2-0.5b at full width
-    (two steps from a Trainer), cut to ``n_layers`` deep (the tied embedding
-    is in the state three times: params, m, v); a new Trainer on its
+    defaults) saves a trained (params, opt_state) of ``cfg`` (default
+    qwen2-0.5b) at full width (two steps from a Trainer), cut to
+    ``n_layers`` deep (``None``: its own depth); a new Trainer on its
     directory restores it, and takes one more step.  Every ``B`` leaf within
     its stored E, every full pencil's spectrum within its stored Delta *
     (1 + 1e-5) + tau (float64, host); ``R`` leaves bitwise.  Stage seconds
@@ -2163,7 +2185,7 @@ def phase_checkpoint(dev, records, cfg=None, tokens=(4, 2048), n_layers=2):
     from repro_torch.runtime import Trainer, TrainerConfig
 
     cfg = cfg or get_config("qwen2-0.5b")
-    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     run = dict(seq_len=tokens[1], global_batch=tokens[0], ckpt_every=10**6, ckpt_async=False, log_every=1)
     t0 = time.perf_counter()
@@ -2243,7 +2265,7 @@ def phase_checkpoint(dev, records, cfg=None, tokens=(4, 2048), n_layers=2):
     del saved, restored
     loss = restored_trainer.train(1)["final_loss"]
     shutil.rmtree(WORK_DIR, ignore_errors=True)
-    emit("checkpoint", config=cfg.name, n_layers=n_layers, vocab=cfg.vocab, fft_impl="pallas",
+    emit("checkpoint", config=cfg.name, n_layers=cfg.n_layers, vocab=cfg.vocab, fft_impl="pallas",
          leaves_by_tag={k: {"leaves": n, "values": m} for k, (n, m) in tags.items()},
          raw_bytes=raw_bytes, stored_bytes=stored, ratio=raw_bytes / stored, save_seconds=save_s,
          stage_thread_seconds=stage_s, restore_seconds=restore_s, check_seconds=check_s,
@@ -3005,6 +3027,140 @@ def phase_sharded(dev, records, codec_cases=SHARDED_CODEC, spectrum_field="nyx-l
          launches_by_path={k: records[k]["launches_by_path"]["sharded"] for k in EVEN_PENCIL_KERNELS})
 
 
+def same_state(mesh_params, one_params):
+    """Every parameter of a mesh Trainer's (its one rank's shards, whole)
+    bitwise the one-device model's; returns the names that differ."""
+    return [k for k, v in one_params.items() if not same(mesh_params[k], v)]
+
+
+def phase_train_mesh(dev, records, cfg=None, tokens=(4, 2048), grad_Delta_rel=5e-5, steps=2):
+    """Training over a data mesh at world size 1: ``Trainer(mesh=
+    make_mesh((1, 1), ("data", "model")))`` on a one-rank process group
+    (NCCL on the card, gloo on the CPU; file:// init under build/), the code
+    the CPU tests run on 2 and 4 gloo ranks (FSDP placements from the rules,
+    the segment-wise step, the gradients compressed over the mesh through a
+    pallas engine: kernels 3p/4p).  ``cfg``: phase train's (qwen2-0.5b at
+    full width, TRAIN_LAYERS layers), ``tokens`` a step, ``steps`` steps.
+
+    Gate: the loss of every step and every parameter after the last equal,
+    bitwise, a one-device Trainer's steps with the same engine from the
+    same seed; one ulp planted in one shard must miss that gate.  The
+    kernels' launches on this path are counted (path "train_mesh") and their
+    first calls held bitwise against the twins.  Reported: step seconds,
+    ``compress_sharded_gradients`` seconds, the rank's peak memory and the
+    bytes of state it holds against the rules' share."""
+    import dataclasses
+    import math
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.kernels.rfft import ops as rfft_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import grad_compress
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config("qwen2-0.5b", n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(cfg, compression=dataclasses.replace(
+        cfg.compression, grad_compression=True, grad_Delta_rel=grad_Delta_rel))
+    engine = CorrectionEngine(fft_impl="pallas", device=dev)
+    run = dict(seq_len=tokens[1], global_batch=tokens[0], ckpt_every=10**6, log_every=1)
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+
+    # the one-device steps (the step function phase train's Trainer runs)
+    one = Trainer(cfg, TrainerConfig(ckpt_dir=str(WORK_DIR / "one"), **run), device=dev, engine=engine)
+    one_losses, one_s = [], []
+    for i in range(steps):
+        batch = one.pipeline.batch_at(i)
+        sync(dev)
+        t0 = time.perf_counter()
+        one.params, one.opt_state, loss = one._step(one.params, one.opt_state, batch)
+        one_losses.append(loss)
+        sync(dev)
+        one_s.append(time.perf_counter() - t0)
+    want = {k: v.detach().clone() for k, v in one.params.state_dict().items()}
+    del one
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{DIST_DIR / 'init'}", rank=0, world_size=1)
+    compress_s = []
+    timed_fn = grad_compress.compress_sharded_gradients
+
+    def timed(*a, **kw):
+        sync(dev)
+        t = time.perf_counter()
+        out = timed_fn(*a, **kw)
+        sync(dev)
+        compress_s.append(time.perf_counter() - t)
+        return out
+
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        if torch.device(dev).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, TrainerConfig(ckpt_dir=str(WORK_DIR / "mesh"), **run), mesh=mesh, engine=engine)
+        init_s = time.perf_counter() - t0
+        held = trainer.layout.state_bytes(trainer.params) + trainer.layout.state_bytes(trainer.opt_state)
+        captured, undo = first_calls((rfft_ops, PENCIL_WRAPPERS))
+        read = reset_launches()
+        grad_compress.compress_sharded_gradients = timed
+        try:
+            out = trainer.train(steps)
+        finally:
+            grad_compress.compress_sharded_gradients = timed_fn
+            undo()
+        counts = read()
+        peak = torch.cuda.max_memory_allocated() if torch.device(dev).type == "cuda" else 0
+        launches_on_path(records, counts, "train_mesh")
+        hold_at_path_shapes("train_mesh", records, captured)
+        del captured
+        losses = [m["loss"] for m in out["metrics"]]
+        one_floats = [float(v) for v in one_losses]
+        differ = same_state(trainer.params, want)
+        # the planted fault: one ulp in one shard
+        leaf = "layers.0.attn.wqkv"
+        faulty = dict(trainer.params)
+        t = faulty[leaf].clone()
+        bits = t.view({2: torch.int16, 4: torch.int32}[t.element_size()]).view(-1)
+        bits[0] += 1  # the next representable magnitude: one ulp
+        faulty[leaf] = t
+        fault_differ = same_state(faulty, want)
+        step_s = [m["dt"] for m in out["metrics"]]
+        emit("train_mesh", config=cfg.name, n_layers=cfg.n_layers, tokens=list(tokens), world_size=1,
+             backend=dist.get_backend(), mesh=list(mesh.shape), mesh_dim_names=list(mesh.mesh_dim_names),
+             fft_impl="pallas", grad_Delta_rel=grad_Delta_rel, init_seconds=init_s, step_seconds=step_s,
+             one_device_step_seconds=one_s,
+             compress_sharded_gradients_seconds=compress_s, losses=losses, one_device_losses=one_floats,
+             losses_bitwise=losses == one_floats, params_differing=differ, params=len(want),
+             planted_fault=f"one ulp in {leaf}[0]", planted_fault_differing=fault_differ,
+             state_bytes_held=held, rules_share_bytes=trainer.layout.share_bytes(), peak_memory_gb=peak / 1e9,
+             launches={k: v for k, v in counts.items() if v})
+        require(all(map(math.isfinite, losses)), "train_mesh: a loss is not finite")
+        require(losses == one_floats, f"train_mesh: losses {losses} differ from the one-device steps' {one_floats}")
+        require(not differ, f"train_mesh: {len(differ)} parameters differ from the one-device steps', e.g. {differ[:3]}")
+        require(fault_differ == [leaf], f"train_mesh: the planted fault was not caught: {fault_differ}")
+        require(held == trainer.layout.share_bytes(), f"train_mesh: holds {held} bytes, the rules' share is "
+                f"{trainer.layout.share_bytes()}")
+        del trainer, faulty, want
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
+    emit("train_mesh", part="summary", seconds=time.perf_counter() - t_phase,
+         launches_by_path={k: records[k]["launches_by_path"]["train_mesh"] for k in EVEN_PENCIL_KERNELS})
+
+
 def recheck(x, dec, blob):
     """Float64 margins of ``dec`` against the bounds ``blob`` STORES."""
     import numpy as np
@@ -3156,6 +3312,21 @@ def sharded_only() -> int:
     return 0
 
 
+def train_mesh_only() -> int:
+    """Build the kernels and run phase train_mesh alone (its gates too)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("device", nvidia_smi=nvidia_smi_line())
+    emit("build", seconds=build.build_all())
+    records = {k: {"name": k, "launches": 0} for k in KERNEL_ROWS}
+    phase_train_mesh("cuda", records)
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
@@ -3175,9 +3346,11 @@ def main() -> int:
         return train_families_only()
     if sys.argv[1:] == ["--sharded"]:
         return sharded_only()
+    if sys.argv[1:] == ["--train-mesh"]:
+        return train_mesh_only()
     if sys.argv[1:]:
-        print("usage: chip_smoke.py [--compare-lm OTHER_CHECKOUT | --decode-sweep | --train-families | --sharded]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--compare-lm OTHER_CHECKOUT | --decode-sweep | --train-families | --sharded "
+              "| --train-mesh]", file=sys.stderr)
         return 2
 
     from repro_torch.compressors import get_compressor
@@ -3281,7 +3454,10 @@ def main() -> int:
     phase_grad_pallas(dev, records, trainer)
     del trainer
     torch.cuda.empty_cache()
-    phase_checkpoint(dev, records)
+    # the same training over a data mesh (world size 1, one-rank NCCL group)
+    phase_train_mesh(dev, records)
+    torch.cuda.empty_cache()
+    phase_checkpoint(dev, records, cfg=get_config("whisper-tiny"), tokens=CHECKPOINT_TOKENS, n_layers=None)
     train_families(dev, records)
 
     # the service path: temporal streams (field frames, EEG pencils), the

@@ -23,12 +23,13 @@ Fault-tolerance properties:
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import shutil
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Optional, Tuple
+from typing import Any, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -155,10 +156,18 @@ class CheckpointManager:
         Leaves come back as CPU tensors in the manifest's dtype, cast to a
         tensor leaf's dtype; a shape mismatch raises ``ValueError``.
         """
+        _, treedef = tree.flatten(like)
+        return tree.unflatten(treedef, [t for _, t in self.restore_leaves(step, like)])
+
+    def restore_leaves(self, step: int, like: Any, ahead: int = host.THREADS) -> Iterator[Tuple[int, torch.Tensor]]:
+        """:meth:`restore`'s leaves one at a time, ``(index, tensor)`` in
+        leaf order, decoding at most ``ahead`` leaves ahead of the one
+        handed out (in threads: numpy and zlib release the lock), so the
+        host holds a few leaves and not the state."""
         path = os.path.join(self.dir, f"step_{step:012d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        leaves_like, treedef = tree.flatten(like)
+        leaves_like, _ = tree.flatten(like)
         if manifest["n_leaves"] != len(leaves_like):
             raise ValueError(
                 f"checkpoint/tree structure mismatch: {manifest['n_leaves']} leaves "
@@ -169,16 +178,18 @@ class CheckpointManager:
             with open(os.path.join(path, f"{i}.bin"), "rb") as f:
                 return self.codec.decode(f.read())
 
-        out = []
-        # leaves decode independently: threads (numpy and zlib release the lock)
-        with ThreadPoolExecutor(host.THREADS) as pool:
-            for i, (ref, arr) in enumerate(zip(leaves_like, pool.map(load, range(len(leaves_like))))):
+        with ThreadPoolExecutor(max(1, ahead)) as pool:
+            pending = collections.deque()
+            for i, ref in enumerate(leaves_like):
+                while len(pending) < max(1, ahead) and i + len(pending) < len(leaves_like):
+                    pending.append(pool.submit(load, i + len(pending)))
+                arr = pending.popleft().result()
                 t = _from_host(arr, manifest["dtypes"][i]).reshape(manifest["shapes"][i])
+                del arr
                 want = tuple(ref.shape) if hasattr(ref, "shape") else np.shape(ref)
                 if tuple(t.shape) != want:
                     raise ValueError(f"leaf {i}: ckpt {tuple(t.shape)} vs expected {want}")
-                out.append(t.to(ref.dtype) if isinstance(ref, torch.Tensor) else t)
-        return tree.unflatten(treedef, out)
+                yield i, (t.to(ref.dtype) if isinstance(ref, torch.Tensor) else t)
 
     def restore_latest(self, like: Any) -> Optional[Tuple[int, Any]]:
         step = self.latest_step()

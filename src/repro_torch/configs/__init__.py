@@ -102,8 +102,9 @@ class ArchConfig:
     attention_impl: str = "xla_flash"  # xla_flash | pallas | naive
     remat: str = "dots"  # none | dots | full (activation checkpointing under autograd)
     causal_scheduling: bool = True  # skip fully-masked causal kv blocks (perf)
-    # mesh axes ((name, size), ...); the port runs on one device and raises
-    # NotImplementedError for a non-empty mesh
+    # mesh axes ((name, size), ...), set by make_step and Trainer(mesh=...):
+    # the models' layout hints; a "model" axis above 1 raises
+    # NotImplementedError (ROADMAP.md Queue 1, item 5e)
     mesh_axes: tuple = ()
     shard_attn_activations: bool = True
     compression: CompressionConfig = dataclasses.field(default_factory=CompressionConfig)

@@ -1,4 +1,4 @@
-"""Step functions (train / prefill / serve) of one device.
+"""Step functions (train / prefill / serve), on one device and over a data mesh.
 
 ``make_train_step(bundle, optimizer)`` returns ``train_step(params,
 opt_state, batch) -> (params, opt_state, loss)``: the loss and its gradients
@@ -18,11 +18,22 @@ Delta and its pencils are the reference's; ``engine`` is the
 reference's ``"xla"``; pass ``CorrectionEngine(fft_impl="pallas")`` for the
 per-pencil kernels).
 
-``make_step`` (step functions with their shardings over a mesh) needs a
-mesh and is not ported (ROADMAP.md Queue 1, item 5d).
+``make_step(cfg, shape_id, mesh)`` returns ``(step, args, in_shardings,
+out_shardings)`` as the reference's does, over a ``DeviceMesh`` whose
+"model" axis has size 1: ``args`` are the meta tensors of
+``launch/specs.input_specs`` (global shapes; parameters as the port's state
+dict), the shardings the rules' DTensor placements of each argument and
+result, and ``step`` runs on each rank's local state
+(:mod:`repro_torch.sharding.fsdp`): train steps FSDP on the rules' "data"
+placements, the batch split by ``batch_pspec``; prefill and decode steps
+split the batch and the cache by ``cache_pspecs``.  A "model" axis above 1
+(tensor and expert parallelism) raises ``NotImplementedError``
+(ROADMAP.md Queue 1, item 5e).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -77,8 +88,60 @@ def make_serve_step(bundle: ModelBundle):
     return serve_step
 
 
-def make_step(cfg, shape_id: str, mesh, optimizer=None):
-    raise NotImplementedError(
-        "make_step builds step functions over a device mesh, which is not ported to repro_torch yet "
-        "(ROADMAP.md Queue 1, item 5d)"
-    )
+def make_step(cfg, shape_id: str, mesh, optimizer: AdamW | None = None, engine=None):
+    """Build ``(step, args, in_shardings, out_shardings)`` for the cell
+    ``shape_id`` of ``SHAPES`` over ``mesh``.
+
+    train:   ``step(params, opt_state, batch) -> (params, opt_state, loss)``
+             (:class:`~repro_torch.sharding.fsdp.MeshTrainStep`; its
+             ``init_state(generator)`` gives this rank's initial shards)
+    prefill: ``step(params, batch, cache) -> (logits, cache)``
+    decode:  ``step(params, tokens, cache) -> (logits, cache)``
+             (:class:`~repro_torch.sharding.fsdp.MeshServe`)
+
+    ``params`` and ``opt_state`` are this rank's shards, ``batch`` and
+    ``tokens`` the global batch, ``cache`` this rank's.  ``engine`` is
+    the train step's gradient compression's."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.specs import input_specs, param_specs
+    from repro_torch.sharding import fsdp
+    from repro_torch.sharding.rules import P, batch_pspec, cache_pspecs, mesh_sizes, placements, to_shardings
+
+    fsdp.require_data_mesh(mesh, "make_step")
+    # the mesh's axes on the config: the models' layout hints read them
+    cfg = dataclasses.replace(cfg, mesh_axes=tuple(mesh_sizes(mesh).items()))
+    seq, batch, kind = SHAPES[shape_id]
+    optimizer = optimizer or AdamW()
+    layout = fsdp.MeshLayout(cfg, mesh)
+    p_abs = param_specs(cfg)
+    p_shard = layout.placements
+    specs = input_specs(cfg, shape_id)
+
+    if kind == "train":
+        step = fsdp.MeshTrainStep(layout, optimizer, engine)
+        opt_abs = optimizer.init(p_abs)
+        opt_shard = to_shardings(optimizer.state_pspecs(layout.specs), mesh)
+        b_shard = to_shardings(batch_pspec(specs["batch"], mesh), mesh)
+        args = (p_abs, opt_abs, specs["batch"])
+        return step, args, (p_shard, opt_shard, b_shard), (p_shard, opt_shard, placements(P(), mesh))
+
+    c_shard = to_shardings(cache_pspecs(specs["cache"], mesh), mesh)
+    if kind == "prefill":
+        b_shard = to_shardings(batch_pspec(specs["batch"], mesh), mesh)
+        args = (p_abs, specs["batch"], specs["cache"])
+        logits = placements(_logits_spec(specs["batch"], mesh), mesh)
+        return fsdp.MeshServe(layout, "prefill"), args, (p_shard, b_shard, c_shard), (logits, c_shard)
+    if kind == "decode":
+        t_shard = to_shardings(batch_pspec({"tokens": specs["tokens"]}, mesh), mesh)["tokens"]
+        args = (p_abs, specs["tokens"], specs["cache"])
+        logits = placements(_logits_spec({"tokens": specs["tokens"]}, mesh), mesh)
+        return fsdp.MeshServe(layout, "decode"), args, (p_shard, t_shard, c_shard), (logits, c_shard)
+    raise ValueError(kind)
+
+
+def _logits_spec(batch_specs_dict, mesh):
+    """Logits (b, s, V): batch over the DP axes when divisible, vocab on model."""
+    from repro_torch.sharding.rules import P, batch_pspec
+
+    spec = batch_pspec(batch_specs_dict, mesh)["tokens"]
+    return P(spec[0] if len(spec) else None, None, "model")

@@ -10,9 +10,12 @@ encoder K/V, and three interchangeable impls.
              only, so a non-causal call (an encoder's, a cross-attention)
              runs ``naive``, as in the reference
 
-All impls share one set of weights and agree to ~1e-5 in float32.  The port
-runs on one device: the reference's mesh sharding constraints have no
-counterpart, and a non-empty ``mesh_axes`` raises ``NotImplementedError``.
+All impls share one set of weights and agree to ~1e-5 in float32.  The
+reference's ``mesh_axes`` place layout hints (``with_sharding_constraint``
+on the heads and the batch) that carry no arithmetic; over a data mesh
+(a "model" axis of size 1) the port accepts them as such, and a "model"
+axis above 1 (heads split by tensor parallelism) raises
+``NotImplementedError`` (ROADMAP.md Queue 1, item 5e).
 A KV cache is updated in place (the reference returns a new one); the
 returned cache dict holds the same tensors with ``pos`` advanced.
 """
@@ -25,7 +28,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.models.layers import apply_rope, normal
+from repro_torch.models.layers import apply_rope, check_model_axis, normal
 
 _NEG_INF = -1e30
 
@@ -218,8 +221,7 @@ def attention_apply(
 
     Returns (output (b,s,d_model), the cache with pos advanced, or None).
     """
-    if mesh_axes:
-        raise NotImplementedError("mesh sharding is not ported (ROADMAP.md Queue 1, item 5d)")
+    check_model_axis(mesh_axes, "attention heads split by tensor parallelism")
     b, s = x.shape[0], x.shape[1]
     scale = 1.0 / float(head_dim) ** 0.5
     new_cache = None

@@ -22,6 +22,16 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def check_model_axis(mesh_axes: tuple, what: str) -> None:
+    """``NotImplementedError`` for a "model" mesh axis above 1 (the
+    reference's ``mesh_axes`` are layout hints; a "model" axis of 1 needs
+    none)."""
+    tp = dict(mesh_axes).get("model", 1)
+    if tp > 1:
+        raise NotImplementedError(
+            f"a 'model' mesh axis of size {tp} ({what}) is not ported yet (ROADMAP.md Queue 1, item 5e)")
+
+
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}[name]
 

@@ -104,12 +104,15 @@ class ModelBundle:
 
 
 def build_model(cfg: ArchConfig, device=None) -> ModelBundle:
-    """The bundle for ``cfg`` on ``device`` (``None`` means ``"cuda"``)."""
+    """The bundle for ``cfg`` on ``device`` (``None`` means ``"cuda"``;
+    ``"meta"`` gives shapes without memory: its ``init_cache`` and ``load``
+    work, and ``launch/specs.py`` builds its stand-ins so)."""
     builders = {"dense": _build_dense, "vlm": _build_dense, "moe": _build_moe, "ssm": _build_ssm,
                 "hybrid": _build_zamba, "audio": _build_whisper}
     if cfg.family not in builders:
         raise ValueError(f"unknown family {cfg.family!r}")
-    return builders[cfg.family](cfg, resolve_device(device))
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    return builders[cfg.family](cfg, dev)
 
 
 def lm_class(cfg: ArchConfig) -> type:
@@ -161,7 +164,11 @@ class LM(nn.Module):
         """Final hidden states (b, s, d) and the cache (None without one).
         ``cfg`` is the config the bundle was built with, as the reference's
         backbone takes it."""
-        return self.backbone(_embed(self, tokens, cfg), cfg, cache, from_zero)
+        return self.backbone(self.embed_inputs(tokens, cfg), cfg, cache, from_zero)
+
+    def embed_inputs(self, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+        """The sequence the backbone reads: the token embeddings."""
+        return _embed(self, tokens, cfg)
 
 
 class DenseLM(LM):
@@ -220,14 +227,19 @@ class VLMLM(DenseLM):
         super().init_blocks_(gen, cfg)
         self.projector.init_(gen)
 
-    def forward(self, tokens: torch.Tensor, cfg: ArchConfig, cache: Optional[dict] = None,
-                from_zero: bool = False, patches: Optional[torch.Tensor] = None):
-        """As :meth:`LM.forward`; with ``patches`` (scoring and prefill) the
-        sequence is the projected patches, then the tokens."""
+    def embed_inputs(self, tokens: torch.Tensor, cfg: ArchConfig,
+                     patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The sequence the backbone reads: with ``patches`` (scoring and
+        prefill) the projected patches, then the token embeddings."""
         x = _embed(self, tokens, cfg)
         if patches is not None:
             x = torch.cat([self.projector(patches, x.dtype), x], dim=1)
-        return self.backbone(x, cfg, cache, from_zero)
+        return x
+
+    def forward(self, tokens: torch.Tensor, cfg: ArchConfig, cache: Optional[dict] = None,
+                from_zero: bool = False, patches: Optional[torch.Tensor] = None):
+        """As :meth:`LM.forward`, the sequence from :meth:`embed_inputs`."""
+        return self.backbone(self.embed_inputs(tokens, cfg, patches), cfg, cache, from_zero)
 
 
 class MoELM(LM):
@@ -326,8 +338,7 @@ class WhisperLM(LM):
     def encode(self, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         """The encoder's output (b, s_enc, d) from the frames plus their
         sinusoidal positions."""
-        x = frames.to(dtype_of(cfg.dtype))
-        x = x + sinusoidal_embed(torch.arange(x.shape[1], device=x.device), cfg.d_model).to(x.dtype)[None]
+        x = encoder_input(frames, cfg)
         for block in self.encoder:
             x = remat_wrap(block, cfg.remat)(x, cfg)
         return x
@@ -372,12 +383,24 @@ class WhisperLM(LM):
         return x, None if cache is None else {"self": self_cache, "cross": kvs}
 
 
+def encoder_input(frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Whisper's encoder input: the frames in ``cfg.dtype`` plus their
+    sinusoidal positions."""
+    x = frames.to(dtype_of(cfg.dtype))
+    return x + sinusoidal_embed(torch.arange(x.shape[1], device=x.device), cfg.d_model).to(x.dtype)[None]
+
+
+def mamba_residual(layer, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """A cache-less mamba2 block with its residual."""
+    return x + layer(x, cfg)[0]
+
+
 def _mamba_stack(layers, x, cfg, cache):
     """Residual mamba2 blocks; ``cache`` (``conv``/``state`` stacked on the
     layer axis) is updated in place and returned."""
     for i, layer in enumerate(layers):
         if cache is None:
-            x = remat_wrap(lambda h, blk=layer: h + blk(h, cfg)[0], cfg.remat)(x)
+            x = remat_wrap(lambda h, blk=layer: mamba_residual(blk, h, cfg), cfg.remat)(x)
             continue
         out, nc = layer(x, cfg, cache={k: t[i] for k, t in cache.items()})
         x = x + out
@@ -418,6 +441,17 @@ def _lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
 
 
+def head_loss(params: LM, h: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The scoring loss from the backbone's final hidden states ``h``."""
+    if cfg.family == "vlm":
+        # the logits that predict the tokens: from the last patch on (the
+        # reference slices the full logits; a head over the rows it keeps
+        # gives the same values)
+        v = cfg.vision_tokens
+        return cross_entropy_loss(_logits(params, h[:, v - 1 : -1], cfg), tokens)
+    return _lm_loss(_logits(params, h, cfg), tokens)
+
+
 def _bundle(cfg: ArchConfig, device: torch.device, init_cache: Callable) -> ModelBundle:
     """The family-independent functions around the family's :func:`lm_class`
     and its cache."""
@@ -447,13 +481,7 @@ def _bundle(cfg: ArchConfig, device: torch.device, init_cache: Callable) -> Mode
     def loss(params: LM, batch) -> torch.Tensor:
         tokens = tokens_of(batch)
         h, _ = params(tokens, cfg, **stubs_of(batch))
-        if cfg.family == "vlm":
-            # the logits that predict the tokens: from the last patch on (the
-            # reference slices the full logits; a head over the rows it keeps
-            # gives the same values)
-            v = cfg.vision_tokens
-            return cross_entropy_loss(_logits(params, h[:, v - 1 : -1], cfg), tokens)
-        return _lm_loss(_logits(params, h, cfg), tokens)
+        return head_loss(params, h, tokens, cfg)
 
     @torch.no_grad()
     def prefill(params: LM, batch, cache: dict):

@@ -23,9 +23,20 @@ fixed order on the card, where a scatter-add (``index_add``) adds float32
 in the order its atomics land; so a forward, its gradients and a resumed
 training run repeat bitwise.
 The expert products are ``einsum``s, as in the reference (no kernel there
-either).  The port runs on one device: the reference's expert-parallel
-sharding constraints have no counterpart, and a non-empty ``mesh_axes``
-raises ``NotImplementedError``.
+either).
+
+Over a data mesh (``mesh_axes`` with a "model" axis of size 1) the layer
+sees only its rank's tokens, where the reference's ``moe_apply`` under
+GSPMD sees the global token count.  The capacity and each pair's slot are
+global there: ``C = capacity_of(T_global, ...)``, and a pair's position in
+its expert is its rank in a stable sort over the global (token, choice)
+order.  Batch rows are split across ranks in rank-major blocks, so inside
+:func:`token_split` a rank's positions are its local ones plus, per expert,
+the pairs routed there by the ranks below it (an all-gather of one count an
+expert), and every rank drops exactly the pairs the global dispatch drops.
+The reference's expert-parallel layout hints (``mesh_axes``) carry no
+arithmetic and are accepted as such; a "model" axis above 1 (expert
+parallelism) raises ``NotImplementedError`` (ROADMAP.md Queue 1, item 5e).
 
 Routing ties: ``torch.topk`` and ``jax.lax.top_k`` may order equal router
 logits differently; on inputs without ties the two route alike.  The
@@ -35,6 +46,8 @@ reference's scatter-add in its own: equal within rounding, not bitwise.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Dict, Mapping
@@ -43,7 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import SwiGLU, dense_init, normal, swiglu
+from repro_torch.models.layers import SwiGLU, check_model_axis, dense_init, normal, swiglu
 
 
 def _expert_init(gen: torch.Generator, e: int, d_in: int, d_out: int, dtype) -> torch.Tensor:
@@ -128,12 +141,46 @@ class Routing:
     pair_of: torch.Tensor
 
 
+#: the token split in force (:func:`token_split`): ``(group, ranks, rank)``
+_SPLIT: contextvars.ContextVar = contextvars.ContextVar("token_split", default=(None, 1, 0))
+
+
+@contextlib.contextmanager
+def token_split(group, n_ranks: int, rank: int):
+    """Route as one slice of a batch split over ``n_ranks`` ranks of
+    ``group`` in rank-major blocks of equal size (every rank of the group
+    routes the same layers in the same order): the capacity of the global
+    token count, and global positions in each expert (module docstring).
+    One rank is the unsplit routing."""
+    token = _SPLIT.set((group, int(n_ranks), int(rank)))
+    try:
+        yield
+    finally:
+        _SPLIT.reset(token)
+
+
+def _ranks_below(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Per expert, the pairs the ranks below this one route there."""
+    import torch.distributed as dist
+
+    group, n, rank = _SPLIT.get()
+    counts = torch.bincount(flat_e, minlength=n_experts)
+    parts = [torch.empty_like(counts) for _ in range(n)]
+    dist.all_gather(parts, counts, group=group)
+    below = torch.zeros_like(counts)
+    for r in range(rank):
+        below += parts[r]
+    return below
+
+
 def route(router: torch.Tensor, tokens: torch.Tensor, *, top_k: int, capacity_factor: float,
           e_pad: int) -> Routing:
-    """Top-k routing of ``tokens (T, d)`` and the capacity-bounded slots."""
+    """Top-k routing of ``tokens (T, d)`` and the capacity-bounded slots
+    (global ones inside :func:`token_split`)."""
     T = tokens.shape[0]
     n_experts = router.shape[1]  # routable (un-padded) experts
-    C = capacity_of(T, top_k, n_experts, capacity_factor)
+    split = _SPLIT.get()[1]
+    C = capacity_of(T * split, top_k, n_experts, capacity_factor)
     dev = tokens.device
     logits = tokens.to(torch.float32) @ router  # (T, E)
     top_w, top_i = torch.topk(logits, top_k, dim=-1)  # (T, k), descending as lax.top_k
@@ -147,6 +194,8 @@ def route(router: torch.Tensor, tokens: torch.Tensor, *, top_k: int, capacity_fa
     sorted_e, sorted_t, sorted_w = flat_e[order], flat_t[order], flat_w[order]
     seg_starts = torch.searchsorted(sorted_e, torch.arange(n_experts, device=dev), side="left")
     pos_in_e = torch.arange(T * top_k, device=dev) - seg_starts[sorted_e]
+    if split > 1:
+        pos_in_e = pos_in_e + _ranks_below(flat_e, n_experts)[sorted_e]
     keep = pos_in_e < C
     slot_e = torch.where(keep, sorted_e, e_pad)
     slot_c = torch.where(keep, pos_in_e, C)
@@ -158,9 +207,9 @@ def route(router: torch.Tensor, tokens: torch.Tensor, *, top_k: int, capacity_fa
 
 def moe_apply(params: Mapping, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
               mesh_axes: tuple = ()) -> torch.Tensor:
-    """x: (b, s, d) -> (b, s, d)."""
-    if mesh_axes:
-        raise NotImplementedError("expert-parallel sharding is not ported (ROADMAP.md Queue 1, item 5d)")
+    """x: (b, s, d) -> (b, s, d).  ``mesh_axes``: the reference's layout
+    hints, accepted while the "model" axis is 1 (module docstring)."""
+    check_model_axis(mesh_axes, "expert parallelism")
     b, s, d = x.shape
     e_pad = params["w_gate"].shape[0]
     tokens = x.reshape(-1, d)

@@ -3,8 +3,14 @@
 ``init`` and ``update`` are plain functions of trees of tensors (a name ->
 tensor mapping, or the reference's nested parameter tree; see
 :mod:`repro_torch.tree`), in the reference's order of float32 operations:
-global-norm clip, bias correction, the clamp of ``v`` at zero.  Sharding
-(``state_pspecs``) is not ported (ROADMAP.md Queue 1, item 5d).
+global-norm clip, bias correction, the clamp of ``v`` at zero.
+
+Moment tensors take the parameters' specs (``state_pspecs``), so over a
+data mesh each rank updates its own shards of the parameters, gradients
+and moments; the one number that spans ranks is the global norm, whose
+per-leaf squared sums ``update`` hands to ``norm_terms`` (the mesh step's
+sums a split leaf's partial sums across the ranks) before adding them in
+leaf order.
 """
 
 from __future__ import annotations
@@ -49,13 +55,19 @@ class AdamW:
         return _f32(self.lr, step.device) * torch.clamp_max(frac, 1.0)
 
     @torch.no_grad()
-    def update(self, grads: Any, state: Any, params: Any) -> Tuple[Any, Any]:
+    def update(self, grads: Any, state: Any, params: Any, norm_terms=None) -> Tuple[Any, Any]:
+        """One step.  ``norm_terms`` (optional) maps the leaves' squared
+        sums, in leaf order, to the global ones (over a mesh: a shard's
+        partial sums added across the ranks)."""
         step = state["step"] + 1
         dev = step.device
         lr = self._schedule(step)
 
         # global-norm clip (float32)
-        gsq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in tree.leaves(grads))
+        terms = [torch.sum(torch.square(g.to(torch.float32))) for g in tree.leaves(grads)]
+        if norm_terms is not None:
+            terms = norm_terms(terms)
+        gsq = sum(terms)
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp_max(_f32(self.grad_clip, dev) / torch.clamp_min(gnorm, 1e-12), 1.0)
 
@@ -85,3 +97,10 @@ class AdamW:
         new_m = tree.unflatten(treedef, [o[1] for o in out])
         new_v = tree.unflatten(treedef, [o[2] for o in out])
         return new_p, {"m": new_m, "v": new_v, "step": step}
+
+    def state_pspecs(self, param_pspecs: Any) -> Any:
+        """The specs of :meth:`init`'s state: the moments take the
+        parameters' specs, ``step`` is replicated."""
+        from repro_torch.sharding.rules import P
+
+        return {"m": param_pspecs, "v": param_pspecs, "step": P()}

@@ -24,8 +24,10 @@ dequantized mean.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import math
+from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -34,14 +36,17 @@ from repro_torch.core.engine import CorrectionEngine, default_engine
 from repro_torch.optim.adamw import _f32
 
 
-def _quantize_dequantize(g: torch.Tensor, bits: int, E_rel: float):
+def _quantize_dequantize(g: torch.Tensor, bits: int, E_rel: float, gmax: Optional[torch.Tensor] = None):
     """Uniform symmetric quantizer with bound E = E_rel * max|g| (per tensor).
 
     Returns ``(dequantized in g's dtype, float32 codes, step)``, in the
     reference's float32 order of operations (the division is by a tensor,
-    so it is IEEE division on the card as well)."""
+    so it is IEEE division on the card as well).  ``gmax`` is the tensor's
+    max |g| when ``g`` is a slice of it (elementwise, the slice's values are
+    the whole tensor's)."""
     g32 = g.to(torch.float32)
-    gmax = torch.max(torch.abs(g32))
+    if gmax is None:
+        gmax = torch.max(torch.abs(g32))
     E = _f32(E_rel, g.device) * gmax
     # round-to-nearest on a grid of step 2E/2^bits => |dequant - g| <= E*2^-bits;
     # the *bound* guaranteed downstream is E (coarse grid = fewer wire bits)
@@ -119,3 +124,253 @@ def compressed_psum(x: torch.Tensor, mesh=None, axis: str = "data", *, bits: int
     codes = torch.round(v32 / step).to(torch.int32)
     total = dist_fft.all_reduce_(codes, group)
     return (total.to(torch.float32) * step / _f32(float(n_dev), x.device)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# over a data mesh
+
+
+def _runs(layout, name: str):
+    """``(run, period)`` of a split parameter: data rank ``s`` holds, of its
+    row-major flat index, every ``[o * period + s * run, o * period + (s +
+    1) * run)``."""
+    shape, k = layout.shapes[name], layout.dims[name]
+    inner = math.prod(shape[k + 1:])
+    return shape[k] // layout.n * inner, shape[k] * inner
+
+
+def _below(layout, name: str, s: int, x: int) -> int:
+    """How many of data rank ``s``'s elements of ``name`` lie below flat
+    index ``x``: where ``[0, x)`` starts in its local flat shard."""
+    run, period = _runs(layout, name)
+    o, rem = divmod(x, period)
+    return o * run + min(max(rem - s * run, 0), run)
+
+
+#: float32 bytes of pencils a rank corrects in one ``engine.correct`` call:
+#: the batched loop's state is a few times its input, so a rank's share of a
+#: large model's pencils is corrected in calls of at most this much (32768
+#: pencils at block 4096).  The rows are independent, so the cut changes no
+#: value.
+_CALL_BYTES = 512 << 20
+
+
+def _place(layout, name: str, lo: int, hi: int, parts):
+    """The flat range ``[lo, hi)`` of split ``name`` from each data rank's
+    elements of it (``parts[s]``, in flat order)."""
+    run, period = _runs(layout, name)
+    o_lo, o_hi = lo // period, (hi - 1) // period + 1
+    n = layout.n
+    ext = torch.zeros((n, (o_hi - o_lo) * run), dtype=parts[0].dtype, device=parts[0].device)
+    for s in range(n):
+        a = _below(layout, name, s, lo) - o_lo * run
+        ext[s, a : a + parts[s].numel()] = parts[s]
+    flat = ext.view(n, o_hi - o_lo, run).transpose(0, 1).reshape(-1)
+    return flat[lo - o_lo * period : hi - o_lo * period]
+
+
+def _pick(layout, name: str, lo: int, hi: int, values: torch.Tensor, s: int) -> torch.Tensor:
+    """Of the flat range ``[lo, hi)`` of split ``name`` (``values``), the
+    elements data rank ``s`` holds, in flat order (the inverse of
+    :func:`_place`)."""
+    run, period = _runs(layout, name)
+    o_lo, o_hi = lo // period, (hi - 1) // period + 1
+    flat = values.new_zeros((o_hi - o_lo) * period)
+    flat[lo - o_lo * period : hi - o_lo * period] = values
+    mine = flat.view(o_hi - o_lo, layout.n, run)[:, s].reshape(-1)
+    a = _below(layout, name, s, lo) - o_lo * run
+    return mine[a : a + _below(layout, name, s, hi) - _below(layout, name, s, lo)]
+
+
+def _exchange(send_parts, recv_sizes, layout):
+    """One all-to-all over the data ranks: ``send_parts[d]`` (a list of
+    float32 tensors) to rank ``d``; returns what each rank sent here, split
+    by source."""
+    send = torch.cat([t for parts in send_parts for t in parts]) if any(send_parts) else None
+    in_sizes = [sum(t.numel() for t in parts) for parts in send_parts]
+    if layout.n == 1:
+        recv = send if send is not None else torch.zeros(0)
+    else:
+        dev = layout.device
+        send = send if send is not None else torch.zeros(0, device=dev)
+        recv = torch.empty(sum(recv_sizes), dtype=torch.float32, device=dev)
+        dist.all_to_all_single(recv, send, recv_sizes, in_sizes, group=layout.group)
+    return list(torch.split(recv, list(recv_sizes)))
+
+
+def compress_sharded_gradients(
+    grads: Dict[str, torch.Tensor],
+    layout,
+    leaves: Sequence[Sequence[str]],
+    *,
+    bits: int = 8,
+    E_rel: float = 1e-2,
+    Delta_rel: float = 1e-2,
+    block: int = 4096,
+    max_iters: int = 8,
+    engine: Optional[CorrectionEngine] = None,
+) -> Dict[str, torch.Tensor]:
+    """:func:`compress_gradients` of the gathered, reduced gradient, over a
+    data mesh, without gathering a leaf.
+
+    ``grads``: this rank's gradient shards by state dict name, lying as
+    ``layout`` (a :class:`repro_torch.sharding.fsdp.MeshLayout`) says;
+    ``leaves``: the reference tree's leaves in its leaf order, each the
+    port names stacked into it, in stack order (``MeshTrainStep.
+    reference_leaves``).  The result is what the one-device call gives on
+    the reference-layout tree, cut to this rank's shards:
+
+    - each leaf's ``E = E_rel * max|g|`` over the whole leaf (an all-reduce
+      of the max), ``Delta = Delta_rel * block * E``;
+    - the reference's pencils: the leaf flattened (its stack axes leading)
+      and cut every ``min(block, max(size, 2))`` values, the last zero
+      padded; leaves of fewer than 2 values pass through;
+    - per effective block, the pencils of every leaf in leaf order are cut
+      into contiguous ranges, one a data rank, and each rank corrects its
+      range through ``engine.correct`` (the batched loop; kernels 3p/4p
+      with a ``pallas`` engine), at most :data:`_CALL_BYTES` of pencils a
+      call (at a small model's size one call: the one-device call).
+      A rank's values reach it by one all-to-all a call, and the
+      corrections go back by another; a rank left with one pencil of a
+      larger batch corrects it beside a zero line (the CPU's FFTs are
+      batch-invariant only for two lines or more).
+
+    The pencils' rows are independent, so the result is bitwise the same
+    at every world size and equal to the one-device call's.
+    """
+    n, rank = layout.n, layout.rank
+    work = []  # (names, numel of one, total, block, E, Delta)
+    maxima = []
+    for names in leaves:
+        size = math.prod(layout.shapes[names[0]])
+        if size * len(names) < 2:
+            continue
+        local = torch.stack([torch.max(torch.abs(grads[k].to(torch.float32))) for k in names])
+        maxima.append(torch.max(local))
+        work.append([list(names), size, size * len(names), min(block, max(size * len(names), 2))])
+    out = dict(grads)
+    if not work:
+        return out
+    gmax = torch.stack(maxima)
+    if n > 1:
+        dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=layout.group)
+    dev = gmax.device
+    for w, m in zip(work, gmax.unbind()):
+        E = _f32(E_rel, dev) * m
+        w += [m, E, _f32(Delta_rel * block, dev) * E]
+    engine = engine or default_engine(dev)
+    for names, *_ in work:
+        for k in names:
+            out[k] = torch.empty_like(grads[k])
+
+    def err_of(name, a, b, m):
+        g = grads[name].reshape(-1)[a:b]
+        return (_quantize_dequantize(g, bits, E_rel, gmax=m)[0] - g).to(torch.float32)
+
+    for blk in sorted({w[3] for w in work}):
+        group = [w for w in work if w[3] == blk]
+        rows = [-(-w[2] // blk) for w in group]
+        starts = np.cumsum([0] + rows)
+        total_rows = int(starts[-1])
+        base, extra = divmod(total_rows, n)
+        first = [d * base + min(d, extra) for d in range(n)]
+        count = [base + (d < extra) for d in range(n)]
+        per_call = max(_CALL_BYTES // (4 * blk), 2)
+        n_calls = -(-max(count) // per_call)
+
+        def plan(d, c):
+            """Rank ``d``'s pieces in call ``c``: ``(leaf, layer, lo, hi)``."""
+            lo_row = first[d] + c * per_call
+            hi_row = first[d] + min(count[d], (c + 1) * per_call)
+            pieces = []
+            for f, w in enumerate(group):
+                a, b = max(lo_row, starts[f]), min(hi_row, starts[f + 1])
+                if a >= b:
+                    continue
+                flo, fhi = (a - starts[f]) * blk, min((b - starts[f]) * blk, w[2])
+                for j in range(flo // w[1], (fhi - 1) // w[1] + 1):
+                    pieces.append((f, j, max(flo, j * w[1]) - j * w[1], min(fhi, (j + 1) * w[1]) - j * w[1]))
+            return pieces
+
+        for c in range(n_calls):
+            plans = [plan(d, c) for d in range(n)]
+
+            def held(s, name, lo, hi, d):
+                """How many values of piece (name, lo, hi) rank s holds for rank d."""
+                if layout.split(name):
+                    return _below(layout, name, s, hi) - _below(layout, name, s, lo)
+                return hi - lo if s == d else 0
+
+            # forward: each rank's values of every rank's pieces
+            send = []
+            for d in range(n):
+                parts = []
+                for f, j, lo, hi in plans[d]:
+                    name, m = group[f][0][j], group[f][4]
+                    if layout.split(name):
+                        parts.append(err_of(name, _below(layout, name, rank, lo), _below(layout, name, rank, hi), m))
+                    elif d == rank:
+                        parts.append(err_of(name, lo, hi, m))
+                send.append(parts)
+            mine = plans[rank]
+            recv = _exchange(send, [sum(held(s, group[f][0][j], lo, hi, rank) for f, j, lo, hi in mine)
+                                    for s in range(n)], layout)
+            del send
+            at = [0] * n
+            tensors, leaf_of = [], []
+            for f, j, lo, hi in mine:
+                name = group[f][0][j]
+                parts = []
+                for s in range(n):
+                    k = held(s, name, lo, hi, rank)
+                    parts.append(recv[s][at[s] : at[s] + k])
+                    at[s] += k
+                piece = _place(layout, name, lo, hi, parts) if layout.split(name) else parts[rank]
+                if leaf_of and leaf_of[-1] == f:
+                    tensors[-1].append(piece)
+                else:
+                    tensors.append([piece])
+                    leaf_of.append(f)
+            del recv
+            if tensors:
+                batch = [torch.cat(t) for t in tensors]
+                Es = [group[f][5] for f in leaf_of]
+                Ds = [group[f][6] for f in leaf_of]
+                if sum(-(-t.numel() // blk) for t in batch) == 1 and total_rows > 1:
+                    one = torch.ones((), dtype=torch.float32, device=dev)
+                    batch, Es, Ds = batch + [batch[0].new_zeros(blk)], Es + [one], Ds + [one]
+                corrected, _stats = engine.correct(batch, Es, Ds, block=blk, max_iters=max_iters)
+                corrected = corrected[: len(tensors)]
+                del batch
+            # back: each rank's corrections of what it holds
+            back = [[] for _ in range(n)]
+            pos = {}
+            for (f, j, lo, hi) in mine:
+                k = leaf_of.index(f)
+                start = pos.get(f, 0)
+                values = corrected[k][start : start + hi - lo]
+                pos[f] = start + hi - lo
+                name = group[f][0][j]
+                for s in range(n):
+                    if layout.split(name):
+                        back[s].append(_pick(layout, name, lo, hi, values, s))
+                    else:
+                        back[s].append(values)
+            recv = _exchange(back, [sum(held(rank, group[f][0][j], lo, hi, d) if layout.split(group[f][0][j])
+                                        else hi - lo for f, j, lo, hi in plans[d]) for d in range(n)], layout)
+            del back
+            for d in range(n):
+                at = 0
+                for f, j, lo, hi in plans[d]:
+                    name = group[f][0][j]
+                    if layout.split(name):
+                        a, b = _below(layout, name, rank, lo), _below(layout, name, rank, hi)
+                    else:
+                        a, b = lo, hi
+                    corr = recv[d][at : at + b - a]
+                    at += b - a
+                    g = grads[name].reshape(-1)[a:b]
+                    out[name].view(-1)[a:b] = (g.to(torch.float32) + corr).to(g.dtype)
+            del recv
+    return out
+

@@ -1,4 +1,5 @@
-"""Fault-tolerant trainer on one device: restart, stragglers, failure injection.
+"""Fault-tolerant trainer, on one device or over a data mesh: restart,
+stragglers, failure injection.
 
   * restart-from-latest: construction restores the newest committed
     checkpoint; the data pipeline is counter-mode so the token stream resumes
@@ -20,8 +21,19 @@ autograd over the family's parameters (``launch/steps.make_train_step``).
 :class:`~repro_torch.core.engine.CorrectionEngine` of the trainer's FFCz
 stages, gradient compression and the checkpoint codec (``None``: the
 device's default engine, ``fft_impl="xla"`` as the reference's; a
-``"pallas"`` engine runs the per-pencil kernels).  A device mesh is not
-ported: ``mesh`` must be ``None`` (ROADMAP.md Queue 1, item 5d).
+``"pallas"`` engine runs the per-pencil kernels).
+
+``mesh`` (a ``DeviceMesh`` whose "model" axis has size 1; every rank of
+it builds its own Trainer) trains with each rank holding its shards of the
+parameters and AdamW's moments (``sharding/fsdp.py``: the step of
+``launch/steps.make_step``, the gradients compressed over the mesh): the
+pipeline's global batch is split by rank, checkpoints hold the reference's
+full arrays (each leaf gathered to rank 0 one shard at a time; rank 0
+writes, the other ranks wait at a barrier), and a restore reads them at
+any world size and re-shards.  ``params`` is then the rank's shards by
+state dict name; ``state()`` is the full state on rank 0 and ``None`` on
+the others.  A "model" axis above 1 raises ``NotImplementedError``
+(ROADMAP.md Queue 1, item 5e).
 """
 
 from __future__ import annotations
@@ -72,13 +84,20 @@ class SimulatedFailure(RuntimeError):
 class Trainer:
     def __init__(self, arch_cfg: ArchConfig, run_cfg: TrainerConfig, mesh=None,
                  optimizer: Optional[AdamW] = None, device=None, engine: Optional[CorrectionEngine] = None):
+        self.layout = None
         if mesh is not None:
-            raise NotImplementedError(
-                "training over a device mesh is not ported to repro_torch yet (ROADMAP.md Queue 1, item 5d)"
-            )
+            from repro_torch.sharding import fsdp
+            from repro_torch.sharding.rules import mesh_sizes
+
+            fsdp.require_data_mesh(mesh, "Trainer")
+            arch_cfg = dataclasses.replace(arch_cfg, mesh_axes=tuple(mesh_sizes(mesh).items()))
+            self.layout = fsdp.MeshLayout(arch_cfg, mesh)
+            if device is not None and torch.device(device).type != self.layout.device.type:
+                raise ValueError(f"device {device} is not the mesh's ({self.layout.device})")
+            device = self.layout.device
         self.cfg = arch_cfg
         self.run = run_cfg
-        self.mesh = None
+        self.mesh = mesh
         self.optimizer = optimizer or AdamW(warmup_steps=10)
         self.bundle = build_model(arch_cfg, device)
         self.device = self.bundle.device
@@ -93,15 +112,23 @@ class Trainer:
         self.step_times: List[float] = []
         self.straggler_events: List[Dict[str, Any]] = []
         self.metrics: List[Dict[str, Any]] = []
-        self._step = make_train_step(self.bundle, self.optimizer, engine)
+        if self.layout is not None:
+            from repro_torch.sharding.fsdp import MeshTrainStep
+
+            self._step = MeshTrainStep(self.layout, self.optimizer, engine)
+        else:
+            self._step = make_train_step(self.bundle, self.optimizer, engine)
 
         # restart-from-latest (fault tolerance); the structure to restore
         # into is the family's model on the meta device (no memory)
         meta = lm_class(arch_cfg)(arch_cfg, device="meta").state_dict()
         like = (lm_params_to_reference(meta, arch_cfg),
                 opt_state_to_reference(self.optimizer.init(meta), arch_cfg))
-        restored = self.ckpt.restore_latest(like)
         self.start_step = 0
+        if self.layout is not None:
+            self._init_sharded(like, run_cfg.seed)
+            return
+        restored = self.ckpt.restore_latest(like)
         if restored is not None:
             self.start_step, (params, opt_state) = restored
             self.params = self.bundle.load(lm_params_from_reference(params, arch_cfg))
@@ -116,10 +143,114 @@ class Trainer:
             self.params = self.bundle.init(torch.Generator(device=self.device).manual_seed(run_cfg.seed))
             self.opt_state = self.optimizer.init(self.params.state_dict())
 
+    def _init_sharded(self, like, seed: int) -> None:
+        """This rank's shards: of the newest checkpoint (full arrays, any
+        world size), else of the one-device initialization.
+
+        Data rank 0 alone reads the checkpoint, one leaf at a time
+        (:meth:`CheckpointManager.restore_leaves`), and hands each of the
+        leaf's port tensors to the data ranks as it comes: split ones
+        scattered (each rank receives its shard), whole ones broadcast.  No
+        rank holds more than a few leaves on its host."""
+        import torch.distributed as dist
+
+        from repro_torch import tree
+        from repro_torch.sharding.fsdp import init_shards
+
+        L = self.layout
+        latest = self.ckpt.latest_step() if L.rank == 0 else None
+        if L.n > 1:
+            box = [latest]
+            dist.broadcast_object_list(box, src=dist.get_global_rank(L.group, 0), group=L.group)
+            latest = box[0]
+        if latest is None:
+            self.params = init_shards(L, torch.Generator(device=self.device).manual_seed(seed))
+            self.opt_state = self.optimizer.init(self.params)
+            return
+        # each leaf's port tensors, in stack order: numbered 0..P-1 for the
+        # parameters, P.. for m, 2P.. for v, -1 for the step
+        names = list(L.shapes)
+        number = lambda off: {k: torch.tensor([float(off + i)]) for i, k in enumerate(names)}  # noqa: E731
+        index = (lm_params_to_reference(number(0), self.cfg),
+                 opt_state_to_reference({"m": number(len(names)), "v": number(2 * len(names)),
+                                         "step": torch.tensor([-1.0])}, self.cfg))
+        owners = [[int(v) for v in t.reshape(-1).tolist()] for t in tree.leaves(index)]
+        likes = tree.leaves(like)
+        trees = [{}, {}, {}]
+        step = None
+        leaves = self.ckpt.restore_leaves(latest, like, ahead=2) if L.rank == 0 else None
+        for ref, owned in zip(likes, owners):
+            whole = next(leaves)[1] if leaves is not None else None
+            if owned == [-1]:
+                step = self._hand_out(None, whole, tuple(ref.shape), ref.dtype)
+                continue
+            shape = L.shapes[names[owned[0] % len(names)]]
+            parts = None if whole is None else whole.reshape((len(owned),) + tuple(shape))
+            for j, o in enumerate(owned):
+                k = names[o % len(names)]
+                trees[o // len(names)][k] = self._hand_out(k, None if parts is None else parts[j],
+                                                           L.shapes[k], ref.dtype)
+            del whole, parts
+        if leaves is not None:
+            leaves.close()
+        self.start_step = latest
+        self.params = {k: trees[0][k] for k in names}
+        self.opt_state = {"m": {k: trees[1][k] for k in names}, "v": {k: trees[2][k] for k in names},
+                          "step": step}
+        if L.rank == 0:
+            print(f"[trainer] restored checkpoint at step {self.start_step}")
+
+    def _hand_out(self, name, whole, shape, dtype) -> torch.Tensor:
+        """This rank's part of one whole tensor that data rank 0 holds
+        (``whole``, on its host; ``None`` elsewhere): its shard of a split
+        parameter ``name`` (scattered), else the whole (broadcast)."""
+        import torch.distributed as dist
+
+        L = self.layout
+        if L.n == 1:
+            return L.shard(name, whole.to(self.device)) if name else whole.to(self.device)
+        src = dist.get_global_rank(L.group, 0)
+        if name is not None and L.split(name):
+            out = torch.empty(L.local_shape(name), dtype=dtype, device=self.device)
+            full = whole.to(self.device) if L.rank == 0 else None
+            dist.scatter(out, [L.shard(name, full, r) for r in range(L.n)] if L.rank == 0 else None,
+                         src=src, group=L.group)
+            return out
+        out = whole.to(self.device).contiguous() if L.rank == 0 else torch.empty(shape, dtype=dtype,
+                                                                                 device=self.device)
+        dist.broadcast(out, src=src, group=L.group)
+        return out
+
     def state(self):
-        """``(params, opt_state)`` in the reference's tree layout."""
-        return (lm_params_to_reference(self.params.state_dict(), self.cfg),
-                opt_state_to_reference(self.opt_state, self.cfg))
+        """``(params, opt_state)`` in the reference's tree layout (over a
+        mesh: gathered to rank 0's host, one leaf at a time; ``None`` on the
+        other ranks)."""
+        if self.layout is None:
+            return (lm_params_to_reference(self.params.state_dict(), self.cfg),
+                    opt_state_to_reference(self.opt_state, self.cfg))
+        L = self.layout
+
+        def gathered(tree):
+            return {k: L.gather_to_rank0(k, v) for k, v in tree.items()}
+
+        params, m, v = gathered(self.params), gathered(self.opt_state["m"]), gathered(self.opt_state["v"])
+        if L.rank != 0:
+            return None
+        return (lm_params_to_reference(params, self.cfg),
+                opt_state_to_reference({"m": m, "v": v, "step": self.opt_state["step"].cpu()}, self.cfg))
+
+    def _save(self, step: int) -> None:
+        state = self.state()
+        if state is not None:
+            self.ckpt.save(step, state, blocking=not self.run.ckpt_async)
+
+    def _barrier(self) -> None:
+        """Over a mesh: rank 0's background save committed, every rank past it."""
+        self.ckpt.wait()
+        if self.layout is not None and self.layout.n > 1:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.layout.group)
 
     # ------------------------------------------------------------------
 
@@ -129,7 +260,7 @@ class Trainer:
         while step < end:
             if self.run.inject_failure_at is not None and step == self.run.inject_failure_at:
                 self.run.inject_failure_at = None
-                self.ckpt.wait()
+                self._barrier()
                 raise SimulatedFailure(f"injected node failure at step {step}")
             t0 = time.time()
             batch = self.pipeline.batch_at(step)
@@ -141,8 +272,8 @@ class Trainer:
             if step % self.run.log_every == 0 or step == end:
                 self.metrics.append({"step": step, "loss": loss, "dt": dt})
             if step % self.run.ckpt_every == 0 or step == end:
-                self.ckpt.save(step, self.state(), blocking=not self.run.ckpt_async)
-        self.ckpt.wait()
+                self._save(step)
+        self._barrier()
         self.start_step = step
         return {"final_step": step, "final_loss": loss, "metrics": self.metrics,
                 "straggler_events": self.straggler_events}

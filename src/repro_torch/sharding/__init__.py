@@ -1,8 +1,9 @@
-"""The pencil-decomposed distributed rFFT over ``torch.distributed``.
+"""Distribution over ``torch.distributed``: the pencil-decomposed rFFT
+(``dist_fft``), the LM's partition rules (``rules``) and fully sharded data
+parallelism over a data mesh (``fsdp``).
 
-The reference's ``repro.sharding`` also holds the LM's partition rules
-(``rules.py``, ``pipeline.py``); those belong to the mesh half of the trainer
-(ROADMAP.md Queue 1, item 5d) and are not ported yet.
+The reference's ``sharding/pipeline.py`` (GPipe) is not ported yet
+(ROADMAP.md Queue 1, item 5e); ``shardmap.py`` is a JAX-version shim.
 """
 
 from repro_torch.sharding.dist_fft import (

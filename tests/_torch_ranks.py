@@ -14,6 +14,7 @@ other, against a single-process computation and against the reference.
 
 from __future__ import annotations
 
+import math
 import multiprocessing
 import os
 import pickle
@@ -239,22 +240,283 @@ def body_sharded(rank, world):
     return out
 
 
-BODIES = {"transforms": body_transforms, "sharded": body_sharded}
+def _data_mesh(world, model=1):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh((world // model, model), ("data", "model"))
+
+
+def _host(layout, tree):
+    """Rank 0's whole copy of a tree of shards (numpy), None elsewhere."""
+    out = {k: layout.gather_to_rank0(k, v) for k, v in tree.items()}
+    return {k: v.numpy() for k, v in out.items()} if layout.rank == 0 else None
+
+
+def _contiguous_collectives():
+    """Make gloo refuse a strided tensor in a collective, as NCCL does."""
+    import torch
+    import torch.distributed as dist
+
+    def strict(name, fn):
+        def call(*args, **kw):
+            for a in (*args, *kw.values()):
+                for t in a if isinstance(a, (list, tuple)) else (a,):
+                    if isinstance(t, torch.Tensor) and not t.is_contiguous():
+                        raise ValueError(f"{name} of a strided tensor {tuple(t.shape)} (NCCL refuses it)")
+            return fn(*args, **kw)
+        return call
+
+    for name in ("all_reduce", "all_gather", "broadcast", "all_to_all_single", "reduce_scatter_tensor", "scatter"):
+        setattr(dist, name, strict(name, getattr(dist, name)))
+
+
+def body_mesh(rank, world, inputs):
+    """The mesh train step of every case (one step from the given
+    parameters), the gradients compressed over the mesh, prefill and decode
+    over the mesh, and a mesh Trainer that checkpoints (``inputs`` built by
+    tests/test_torch_mesh_train.py).  Collectives refuse strided tensors."""
+    import dataclasses
+
+    import torch
+
+    _contiguous_collectives()
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.grad_compress import compress_sharded_gradients
+    from repro_torch.sharding import fsdp
+    from repro_torch.sharding.rules import mesh_sizes
+
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = _data_mesh(world)
+    out = {"train": {}, "compress": {}, "serve": {}, "pod_train": {}}
+    pod_mesh = make_mesh((2, 2, 1), ("pod", "data", "model")) if inputs.get("pod_train") and world == 4 else None
+    cases = [("train", mesh, c) for c in inputs["train"]]
+    cases += [("pod_train", pod_mesh, c) for c in inputs.get("pod_train", ()) if world == 4]
+    for kind, m, (label, arch, overrides, state, batch) in cases:
+        cfg = get_smoke_config(arch, **overrides)
+        step, args, in_sh, out_sh = steps.make_step(cfg, "train_4k", m, optimizer=AdamW(warmup_steps=2))
+        L = step.layout
+        params = {k: L.shard(k, torch.from_numpy(v)) for k, v in state.items()}
+        opt = step.optimizer.init(params)
+        gathered = _watch_gathers(step)
+        grads = _watch_grads(step)
+        new, opt, loss = step(params, opt, batch)
+        share = L.state_bytes(new) + L.state_bytes(opt)
+        out[kind][label] = {"loss": float(loss), "params": _host(L, new), "state_bytes": share,
+                            "gathered": gathered, "grads": _host(L, grads),
+                            "share_bytes": L.share_bytes(), "param_bytes": L.state_bytes(new),
+                            "args": {k: tuple(v.shape) for k, v in args[0].items()},
+                            "placements": {k: [repr(p) for p in v] for k, v in in_sh[0].items()}}
+
+    from repro_torch.optim import grad_compress
+
+    for label, arch, grads, kw, per_call, impl in inputs["compress"]:
+        cfg = get_smoke_config(arch)
+        cfg = dataclasses.replace(cfg, mesh_axes=tuple(mesh_sizes(mesh).items()))
+        L = fsdp.MeshLayout(cfg, mesh)
+        shards = {k: L.shard(k, torch.from_numpy(v)) for k, v in grads.items()}
+        calls = []
+
+        class Recording(CorrectionEngine):
+            def correct(self, tensors, E, Delta, block=4096, **k):
+                calls.append((block, sum(-(-t.numel() // block) for t in tensors)))
+                return super().correct(tensors, E, Delta, block=block, **k)
+
+        bound = grad_compress._CALL_BYTES
+        if per_call is not None:  # calls of ``per_call`` whole-block pencils
+            grad_compress._CALL_BYTES = per_call * 4 * kw["block"]
+        try:
+            got = compress_sharded_gradients(shards, L, fsdp.reference_leaves(cfg, list(L.shapes)),
+                                             engine=Recording(device="cpu", fft_impl=impl), **kw)
+        finally:
+            grad_compress._CALL_BYTES = bound
+        out["compress"][label] = {"grads": _host(L, got), "calls": calls}
+
+    for label, arch, state, toks, prompt in inputs["serve"]:
+        cfg = get_smoke_config(arch)
+        pre, _, _, pre_out = steps.make_step(cfg, "prefill_32k", mesh)
+        dec = steps.make_step(cfg, "decode_32k", mesh)[0]
+        L = pre.layout
+        params = {k: L.shard(k, torch.from_numpy(v)) for k, v in state.items()}
+        split = L.batch_split(toks.shape[0])
+        cache = pre.bundle.init_cache(toks.shape[0] // split.size, toks.shape[1] + 4)
+        batch = {"tokens": toks[:, :prompt]}
+        logits, cache = pre(params, batch, cache)
+        seq = [logits.numpy()]
+        for t in range(prompt, toks.shape[1]):
+            logits, cache = dec(params, toks[:, t : t + 1], cache)
+            seq.append(logits.numpy())
+        out["serve"][label] = {"rows": split.rows(toks.shape[0]), "logits": seq}
+
+    ck = inputs.get("checkpoint")
+    if ck is not None and world in ck["worlds"]:
+        out["checkpoint"] = _mesh_trainer(rank, world, mesh, ck)
+    if world in inputs.get("model_axis_worlds", ()):
+        out["model_axis"] = _model_axis(world)
+    return out
+
+
+def _watch_gathers(step):
+    """Track the whole parameters ``step``'s layout gathers that are alive
+    at once (weak references: a tensor counts until it is freed); returns
+    the record, filled as the step runs."""
+    import weakref
+
+    L = step.layout
+    nbytes = {k: math.prod(L.shapes[k]) * torch_itemsize(L.dtypes[k]) for k in L.shapes}
+    rec = {"live": 0, "max_live_bytes": 0, "model_bytes": sum(nbytes.values()),
+           "largest_segment_bytes": max(sum(nbytes[n] for n in s.params) for s in step.segments)}
+    gather = L.gather
+
+    def watched(name, local):
+        full = gather(name, local)
+        if full is not local:
+            rec["live"] += nbytes[name]
+            rec["max_live_bytes"] = max(rec["max_live_bytes"], rec["live"])
+            weakref.finalize(full, lambda n=nbytes[name]: rec.__setitem__("live", rec["live"] - n))
+        return full
+
+    L.gather = watched
+    return rec
+
+
+def _watch_grads(step):
+    """The gradient shards ``step`` hands on from its reduction (before any
+    compression), filled as the step runs."""
+    got = {}
+    loss_and_grads = step.loss_and_grads
+
+    def watched(*args, **kw):
+        loss, grads = loss_and_grads(*args, **kw)
+        got.update(grads)
+        return loss, grads
+
+    step.loss_and_grads = watched
+    return got
+
+
+def torch_itemsize(dtype) -> int:
+    import torch
+
+    return torch.empty(0, dtype=dtype).element_size()
+
+
+def _mesh_trainer(rank, world, mesh, ck):
+    """A mesh Trainer: at ``ck["saver"]`` ranks it trains ``ck["steps"]``
+    steps on ``ck["dir"]``, checkpointing each, with a failure injected at
+    ``ck["fail_at"]`` and a restart; at the other world sizes it waits for
+    that run's last checkpoint, restores a copy of it and trains
+    ``ck["more"]`` steps."""
+    import dataclasses
+    import shutil
+    import time
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.runtime import SimulatedFailure, Trainer, TrainerConfig
+
+    cfg = get_smoke_config(ck["arch"])
+    cfg = dataclasses.replace(cfg, compression=dataclasses.replace(
+        cfg.compression, grad_compression=True, grad_Delta_rel=5e-5, grad_block=256))
+    run = dict(seq_len=24, global_batch=4, ckpt_every=1, ckpt_async=True, log_every=1)
+    engine = CorrectionEngine(device="cpu", fft_impl="pallas")
+    result = {}
+    directory, steps = ck["dir"], ck["steps"]
+    if world == ck["saver"]:
+        t = Trainer(cfg, TrainerConfig(ckpt_dir=directory, inject_failure_at=ck["fail_at"], **run), mesh=mesh,
+                    device="cpu", engine=engine)
+        try:
+            t.train(steps)
+            result["failed"] = False
+        except SimulatedFailure:
+            result["failed"] = True
+    else:
+        # the saver's last step, committed (written under a temporary name,
+        # then renamed), copied to this group's own directory
+        last = f"step_{ck['fail_at'] + steps:012d}"
+        deadline = time.monotonic() + ck.get("wait", 200.0)
+        while not os.path.isdir(os.path.join(directory, last)):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no checkpoint {last} in {directory}")
+            time.sleep(0.2)
+        own = f"{directory}_{world}"
+        if rank == 0:
+            shutil.copytree(os.path.join(directory, last), os.path.join(own, last))
+        dist.barrier()
+        directory, steps = own, ck["more"]
+    from repro_torch.checkpoint.codec import CheckpointCodec
+
+    decoded, decode = [], CheckpointCodec.decode
+    CheckpointCodec.decode = lambda self, data: decoded.append(len(data)) or decode(self, data)
+    try:
+        t = Trainer(cfg, TrainerConfig(ckpt_dir=directory, **run), mesh=mesh, device="cpu", engine=engine)
+    finally:
+        CheckpointCodec.decode = decode
+    result["start"] = t.start_step
+    result["decoded_leaves"] = len(decoded)
+    state = t.state()
+    result["restored"] = None if state is None else _state_np(state)
+    got = t.train(steps)
+    result["losses"] = [m["loss"] for m in got["metrics"]]
+    result["straggler_events"] = got["straggler_events"]
+    state = t.state()
+    result["final"] = None if state is None else _state_np(state)
+    return result
+
+
+def _state_np(state):
+    from repro_torch import tree
+
+    return [leaf.detach().cpu().numpy() for leaf in tree.leaves(state)]
+
+
+def _model_axis(world):
+    """A "model" axis of 2: what each mesh entry point raises."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.sharding import fsdp
+
+    mesh = _data_mesh(world, model=2)
+    cfg = get_smoke_config("qwen2-0.5b")
+    out = {}
+    for label, call in (("layout", lambda: fsdp.MeshLayout(cfg, mesh)),
+                        ("make_step", lambda: steps.make_step(cfg, "train_4k", mesh)),
+                        ("trainer", lambda: Trainer(cfg, TrainerConfig(), mesh=mesh, device="cpu"))):
+        try:
+            call()
+            out[label] = None
+        except NotImplementedError as e:
+            out[label] = str(e)
+    return out
+
+
+BODIES = {"transforms": body_transforms, "sharded": body_sharded, "mesh": body_mesh}
 
 
 # ---------------------------------------------------------------------------
 # the launcher
 
 
-def _entry(rank, world, init_file, out_file, body):
+def _entry(rank, world, init_file, out_file, body, inputs_file=None):
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     try:
+        kw = {}
+        if inputs_file is not None:
+            with open(inputs_file, "rb") as f:
+                kw["inputs"] = pickle.load(f)
         dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
         try:
-            result = {"ok": BODIES[body](rank, world)}
+            result = {"ok": BODIES[body](rank, world, **kw)}
         finally:
             dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 - reported to the parent
@@ -263,21 +525,39 @@ def _entry(rank, world, init_file, out_file, body):
         pickle.dump(result, f)
 
 
-def run_worlds(body: str, worlds, directory, timeout: float = 120.0):
+def run_worlds(body: str, worlds, directory, timeout: float = 120.0, inputs=None):
     """Run ``body`` at each world size of ``worlds``, every group at once;
     ``{world: [rank results]}``, or ``{world: "error text"}`` for a group
-    that failed or outran ``timeout`` seconds (its processes killed)."""
+    that failed or outran ``timeout`` seconds (its processes killed).
+    ``inputs`` (pickled once) is handed to every rank's body."""
+    return start_worlds(body, worlds, directory, timeout, inputs)()
+
+
+def start_worlds(body: str, worlds, directory, timeout: float = 120.0, inputs=None):
+    """:func:`run_worlds`, returning once the ranks are started: call the
+    returned function for the results."""
     ctx = multiprocessing.get_context("spawn")
+    inputs_file = None
+    if inputs is not None:
+        os.makedirs(str(directory), exist_ok=True)
+        inputs_file = os.path.join(str(directory), f"{body}_inputs.pkl")
+        with open(inputs_file, "wb") as f:
+            pickle.dump(inputs, f)
     groups = {}
     for world in worlds:
         base = os.path.join(str(directory), f"{body}_{world}")
         os.makedirs(base, exist_ok=True)
         procs = [ctx.Process(target=_entry, args=(r, world, os.path.join(base, "init"),
-                                                   os.path.join(base, f"rank{r}.pkl"), body), daemon=True)
+                                                   os.path.join(base, f"rank{r}.pkl"), body, inputs_file),
+                             daemon=True)
                  for r in range(world)]
         for p in procs:
             p.start()
         groups[world] = (base, procs, time.monotonic() + timeout)
+    return lambda: _join(groups, timeout)
+
+
+def _join(groups, timeout):
     results = {}
     for world, (base, procs, deadline) in groups.items():
         for p in procs:

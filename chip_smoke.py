@@ -108,9 +108,17 @@ Phases, one JSON line each (or more):
               bitwise): losses and every parameter bitwise a one-device
               Trainer's steps with the same engine, one ulp planted in a
               shard caught; step and compress seconds, peak memory, the
-              state bytes held against the rules' share.  Not shown on one
-              card: more than one rank (CPU gloo tests at 2 and 4;
-              examples/train_mesh_torch.py on 4 cards)
+              state bytes held against the rules' share; the segments run
+              under the mesh's tensor-parallel context (model size 1: every
+              operator the identity).  Not shown on one card: more than one
+              rank (CPU gloo tests at 2, 4 and 8 ranks, "model" axes of 2 and
+              4; examples/train_mesh_torch.py on 2 and 4 cards)
+  serve_mesh  qwen2-0.5b at full width and depth (bf16, attention_impl
+              "pallas", random weights) served through make_step prefill
+              (4 prompts of 2048 tokens) and 2 decode steps (MeshServe) on
+              the one-rank (1, 1) mesh: logits bitwise the one-device
+              bundle's, flash launched once a layer in the prefill (path
+              "serve_mesh") and its first call held against the twin
   grad_pallas one step's gradients (315 M values) through compress_gradients
               with the pallas engine (kernels 3 and 4 per pencil) and the
               xla engine, every pencil rechecked in float64 on the host
@@ -196,7 +204,8 @@ builds the kernels and runs phase sharded alone, with its gates.
 
     python3 chip_smoke.py --train-mesh
 
-builds the kernels and runs phase train_mesh alone, with its gates.
+builds the kernels and runs phases train_mesh and serve_mesh alone, with
+their gates.
 """
 
 from __future__ import annotations
@@ -3062,6 +3071,7 @@ def phase_train_mesh(dev, records, cfg=None, tokens=(4, 2048), grad_Delta_rel=5e
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import grad_compress
     from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.sharding import tp
 
     t_phase = time.perf_counter()
     cfg = cfg or get_config("qwen2-0.5b", n_layers=TRAIN_LAYERS)
@@ -3115,10 +3125,13 @@ def phase_train_mesh(dev, records, cfg=None, tokens=(4, 2048), grad_Delta_rel=5e
         captured, undo = first_calls((rfft_ops, PENCIL_WRAPPERS))
         read = reset_launches()
         grad_compress.compress_sharded_gradients = timed
+        entered, context = [], tp.context
+        tp.context = lambda ctx: entered.append(ctx) or context(ctx)  # the segments' TP context
         try:
             out = trainer.train(steps)
         finally:
             grad_compress.compress_sharded_gradients = timed_fn
+            tp.context = context
             undo()
         counts = read()
         peak = torch.cuda.max_memory_allocated() if torch.device(dev).type == "cuda" else 0
@@ -3145,8 +3158,11 @@ def phase_train_mesh(dev, records, cfg=None, tokens=(4, 2048), grad_Delta_rel=5e
              losses_bitwise=losses == one_floats, params_differing=differ, params=len(want),
              planted_fault=f"one ulp in {leaf}[0]", planted_fault_differing=fault_differ,
              state_bytes_held=held, rules_share_bytes=trainer.layout.share_bytes(), peak_memory_gb=peak / 1e9,
+             tp_context_entries=len(entered), tp_model_size=trainer.layout.tp_ctx.size,
              launches={k: v for k, v in counts.items() if v})
         require(all(map(math.isfinite, losses)), "train_mesh: a loss is not finite")
+        require(bool(entered) and all(c is trainer.layout.tp_ctx for c in entered),
+                f"train_mesh: the segments ran outside the mesh's TP context ({len(entered)} entries)")
         require(losses == one_floats, f"train_mesh: losses {losses} differ from the one-device steps' {one_floats}")
         require(not differ, f"train_mesh: {len(differ)} parameters differ from the one-device steps', e.g. {differ[:3]}")
         require(fault_differ == [leaf], f"train_mesh: the planted fault was not caught: {fault_differ}")
@@ -3159,6 +3175,121 @@ def phase_train_mesh(dev, records, cfg=None, tokens=(4, 2048), grad_Delta_rel=5e
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     emit("train_mesh", part="summary", seconds=time.perf_counter() - t_phase,
          launches_by_path={k: records[k]["launches_by_path"]["train_mesh"] for k in EVEN_PENCIL_KERNELS})
+
+
+def phase_serve_mesh(dev, records, cfg=None, rows=4, prompt=2048, new=2):
+    """Serving over a mesh at world size 1: ``make_step`` prefill and decode
+    (``MeshServe``) on ``make_mesh((1, 1), ("data", "model"))`` over a
+    one-rank process group, the code the CPU tests run with "model" axes of
+    2 and 4 (the rules' placements, each layer's parameters gathered by a
+    hook, the mesh's TP context, a cache from ``MeshServe.init_cache``).
+    ``cfg``: qwen2-0.5b at full width and depth, bf16, ``attention_impl=
+    "pallas"`` (the prefill runs the flash kernel), random weights from seed
+    0; ``rows`` prompts of ``prompt`` tokens, then ``new`` decode steps.
+
+    Gate: every step's logits bitwise the one-device bundle's on the same
+    weights and tokens; the flash kernel launched (path "serve_mesh": one a
+    layer, in the prefill) and its first call held against the twin (bf16:
+    one ulp at each element's magnitude, 3e-5 floor).  Reported: prefill and
+    decode seconds, the state and cache bytes a rank holds."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.fsdp import init_shards
+
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config("qwen2-0.5b", attention_impl="pallas")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (rows, prompt + new), generator=gen, device=dev, dtype=torch.int64)
+
+    def serve(step_prefill, step_decode, params, cache):
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = step_prefill(params, {"tokens": toks[:, :prompt]}, cache)
+        out = [logits.clone()]
+        sync(dev)
+        t1 = time.perf_counter()
+        for t in range(prompt, prompt + new):
+            logits, cache = step_decode(params, toks[:, t : t + 1], cache)
+            out.append(logits.clone())
+        sync(dev)
+        return out, t1 - t0, time.perf_counter() - t1, cache
+
+    bundle = build_model(cfg, device=dev)
+    one = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    want, one_prefill_s, one_decode_s, _ = serve(bundle.prefill, bundle.decode, one,
+                                                 bundle.init_cache(rows, prompt + new + 1))
+    del one, bundle
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{DIST_DIR / 'init'}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        pre, _args, _in, out_sh = steps_mod.make_step(cfg, "prefill_32k", mesh)
+        dec = steps_mod.make_step(cfg, "decode_32k", mesh)[0]
+        L = pre.layout
+        params = init_shards(L, torch.Generator(device=dev).manual_seed(0))
+        cache = pre.init_cache(rows, prompt + new + 1)
+        captured, undo = first_calls((flash_ops, ("flash_attention",)))
+        read = reset_launches()
+        try:
+            got, prefill_s, decode_s, cache = serve(pre, dec, params, cache)
+        finally:
+            undo()
+        counts = read()
+        bitwise = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+        diffs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+        n_flash = counts["flash_attention"]
+        flash = records["flash_attention"]
+        flash["launches"] += n_flash
+        flash.setdefault("launches_by_path", {})["serve_mesh"] = n_flash
+
+        # the kernel against its twin at the path's first shape (outside the count)
+        (name, shape), (ops, args, kw) = next(iter(captured.items()))
+
+        def replay():
+            read_one = reset_launches()
+            kernel = getattr(ops, name)(*args, **kw)
+            return kernel, read_one()["flash_attention"]
+
+        kernel, replay_launches = without_counting(replay)
+        ok, ulps, n_over, worst = bf16_within_one_ulp(kernel, attention_ref(*args, **kw))
+        flash.setdefault("shapes_held_on_paths", {}).setdefault("serve_mesh", []).append(list(shape))
+        held = L.state_bytes(params)
+        emit("serve_mesh", config=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype, rows=rows, prompt=prompt,
+             decode_steps=new, world_size=1, backend=dist.get_backend(), mesh=list(mesh.shape),
+             logits_placements=[repr(p) for p in out_sh[0]], logits_shape=list(got[0].shape),
+             logits_bitwise=bitwise, max_abs_diff=diffs, prefill_seconds=prefill_s, decode_seconds=decode_s,
+             one_device_prefill_seconds=one_prefill_s, one_device_decode_seconds=one_decode_s,
+             state_bytes_held=held, rules_share_bytes=L.share_bytes(moments=False),
+             cache_bytes=L.state_bytes(cache), launches={k: v for k, v in counts.items() if v},
+             flash_held={"shape": list(shape), "launches": replay_launches, "within_one_ulp": ok,
+                         "max_ulps": ulps, "n_over_one_ulp": n_over, "largest_value_over_one_ulp": worst})
+        require(all(bitwise), f"serve_mesh: logits differ from the one-device bundle's by {diffs}")
+        require(n_flash == cfg.n_layers, f"serve_mesh: {n_flash} flash_attention launches, want {cfg.n_layers}")
+        require(replay_launches == 1, f"serve_mesh: the held call launched {replay_launches} kernels, want one")
+        require(ok, f"serve_mesh: flash_attention at {shape} is more than one ulp + 3e-5 from its twin")
+        require(held == L.share_bytes(moments=False), f"serve_mesh: holds {held} bytes, the rules' share is "
+                f"{L.share_bytes(moments=False)}")
+        del params, cache, got, captured
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    emit("serve_mesh", part="summary", seconds=time.perf_counter() - t_phase,
+         launches_by_path={"flash_attention": records["flash_attention"]["launches_by_path"]["serve_mesh"]})
 
 
 def recheck(x, dec, blob):
@@ -3313,7 +3444,8 @@ def sharded_only() -> int:
 
 
 def train_mesh_only() -> int:
-    """Build the kernels and run phase train_mesh alone (its gates too)."""
+    """Build the kernels and run phases train_mesh and serve_mesh alone
+    (their gates too)."""
     import torch
 
     from repro_torch.kernels import build
@@ -3324,6 +3456,7 @@ def train_mesh_only() -> int:
     emit("build", seconds=build.build_all())
     records = {k: {"name": k, "launches": 0} for k in KERNEL_ROWS}
     phase_train_mesh("cuda", records)
+    phase_serve_mesh("cuda", records)
     return 0
 
 
@@ -3454,8 +3587,11 @@ def main() -> int:
     phase_grad_pallas(dev, records, trainer)
     del trainer
     torch.cuda.empty_cache()
-    # the same training over a data mesh (world size 1, one-rank NCCL group)
+    # the same training over a mesh (world size 1, one-rank NCCL group), and
+    # serving through MeshServe there
     phase_train_mesh(dev, records)
+    torch.cuda.empty_cache()
+    phase_serve_mesh(dev, records)
     torch.cuda.empty_cache()
     phase_checkpoint(dev, records, cfg=get_config("whisper-tiny"), tokens=CHECKPOINT_TOKENS, n_layers=None)
     train_families(dev, records)

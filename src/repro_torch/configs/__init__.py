@@ -103,8 +103,8 @@ class ArchConfig:
     remat: str = "dots"  # none | dots | full (activation checkpointing under autograd)
     causal_scheduling: bool = True  # skip fully-masked causal kv blocks (perf)
     # mesh axes ((name, size), ...), set by make_step and Trainer(mesh=...):
-    # the models' layout hints; a "model" axis above 1 raises
-    # NotImplementedError (ROADMAP.md Queue 1, item 5e)
+    # the models' layout hints (no arithmetic; the split compute comes from
+    # sharding/tp.py's context)
     mesh_axes: tuple = ()
     shard_attn_activations: bool = True
     compression: CompressionConfig = dataclasses.field(default_factory=CompressionConfig)

@@ -8,9 +8,8 @@ NCCL groups give ``"cuda"`` meshes, the others ``"cpu"`` ones.  Every
 function here is a collective call: every rank of the group makes it.
 
 Single pod: 256 ranks as (data=16, model=16).  Multi-pod: 512 ranks as
-(pod=2, data=16, model=16); the pod axis is the outer data-parallel axis.
-The port's steps run meshes whose "model" axis has size 1 (ROADMAP.md
-Queue 1, item 5e takes the rest).
+(pod=2, data=16, model=16); the pod axis is the outer data-parallel axis,
+"model" the tensor- and expert-parallel one.
 """
 
 from __future__ import annotations

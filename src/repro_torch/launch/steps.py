@@ -1,4 +1,4 @@
-"""Step functions (train / prefill / serve), on one device and over a data mesh.
+"""Step functions (train / prefill / serve), on one device and over a mesh.
 
 ``make_train_step(bundle, optimizer)`` returns ``train_step(params,
 opt_state, batch) -> (params, opt_state, loss)``: the loss and its gradients
@@ -19,16 +19,16 @@ reference's ``"xla"``; pass ``CorrectionEngine(fft_impl="pallas")`` for the
 per-pencil kernels).
 
 ``make_step(cfg, shape_id, mesh)`` returns ``(step, args, in_shardings,
-out_shardings)`` as the reference's does, over a ``DeviceMesh`` whose
-"model" axis has size 1: ``args`` are the meta tensors of
-``launch/specs.input_specs`` (global shapes; parameters as the port's state
-dict), the shardings the rules' DTensor placements of each argument and
-result, and ``step`` runs on each rank's local state
+out_shardings)`` as the reference's does, over a ``DeviceMesh`` of
+("data", "model") or ("pod", "data", "model") axes: ``args`` are the meta
+tensors of ``launch/specs.input_specs`` (global shapes; parameters as the
+port's state dict), the shardings the rules' DTensor placements of each
+argument and result, and ``step`` runs on each rank's local state
 (:mod:`repro_torch.sharding.fsdp`): train steps FSDP on the rules' "data"
-placements, the batch split by ``batch_pspec``; prefill and decode steps
-split the batch and the cache by ``cache_pspecs``.  A "model" axis above 1
-(tensor and expert parallelism) raises ``NotImplementedError``
-(ROADMAP.md Queue 1, item 5e).
+placements and tensor and expert parallelism on their "model" ones, the
+batch split by ``batch_pspec``; prefill and decode steps split the batch
+and the cache by ``cache_pspecs`` and return each rank's rows and vocab
+block of the logits (``_logits_spec``).
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ def make_step(cfg, shape_id: str, mesh, optimizer: AdamW | None = None, engine=N
     from repro_torch.sharding import fsdp
     from repro_torch.sharding.rules import P, batch_pspec, cache_pspecs, mesh_sizes, placements, to_shardings
 
-    fsdp.require_data_mesh(mesh, "make_step")
+    fsdp.require_device_mesh(mesh, "make_step")
     # the mesh's axes on the config: the models' layout hints read them
     cfg = dataclasses.replace(cfg, mesh_axes=tuple(mesh_sizes(mesh).items()))
     seq, batch, kind = SHAPES[shape_id]

@@ -10,12 +10,23 @@ encoder K/V, and three interchangeable impls.
              only, so a non-causal call (an encoder's, a cross-attention)
              runs ``naive``, as in the reference
 
-All impls share one set of weights and agree to ~1e-5 in float32.  The
-reference's ``mesh_axes`` place layout hints (``with_sharding_constraint``
-on the heads and the batch) that carry no arithmetic; over a data mesh
-(a "model" axis of size 1) the port accepts them as such, and a "model"
-axis above 1 (heads split by tensor parallelism) raises
-``NotImplementedError`` (ROADMAP.md Queue 1, item 5e).
+All impls share one set of weights and agree to ~1e-5 in float32.  A
+whole-prompt prefill (``from_zero``) under ``pallas`` runs the flash kernel
+over the prompt's own K/V (at position 0 the cache slots past the prompt
+are in every query's causal future); the reference's prefill runs its
+blockwise XLA attention there, equal within rounding.
+
+The reference's ``mesh_axes`` place layout hints (``with_sharding_constraint``
+on the heads and the batch) that carry no arithmetic; the port accepts them
+as such.  The split compute comes from the tensor-parallel context
+(:mod:`repro_torch.sharding.tp`) the mesh layer sets: when the heads split
+(``n_heads`` and ``n_kv_heads`` both divisible by the "model" size), the
+parameters are this rank's heads (``wqkv``/``bqkv`` its q, k and v heads,
+``wo`` its q heads), the input enters through ``copy_to_model``, the cache
+holds its kv heads, and ``wo``'s partial product is summed over "model".
+Otherwise every model rank computes the attention whole from the whole
+weights (the reference's "replicate the head axis" branch, logged once a
+configuration), gathering a cache whose ``head_dim`` the mesh splits.
 A KV cache is updated in place (the reference returns a new one); the
 returned cache dict holds the same tensors with ``pos`` advanced.
 """
@@ -28,7 +39,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.models.layers import apply_rope, check_model_axis, normal
+from repro_torch.models.layers import apply_rope, normal
+from repro_torch.sharding import tp
 
 _NEG_INF = -1e30
 
@@ -220,8 +232,28 @@ def attention_apply(
         q only, attending over all of (k, v) without a causal mask
 
     Returns (output (b,s,d_model), the cache with pos advanced, or None).
+    ``mesh_axes`` are layout hints (module docstring); the tensor-parallel
+    context in force decides the split.
     """
-    check_model_axis(mesh_axes, "attention heads split by tensor parallelism")
+    del mesh_axes
+    ctx = tp.active()
+    split = ctx is not None and ctx.heads
+    if split:
+        n_heads, n_kv_heads = n_heads // ctx.size, n_kv_heads // ctx.size
+        x = tp.copy_to_model(x)
+    elif ctx is not None:
+        tp.note_replicated("attention", n_heads, n_kv_heads)
+    out, new_cache = _attention(params, x, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim, impl=impl,
+                                causal=causal, pos_type=pos_type, rope_theta=rope_theta, positions=positions,
+                                cache=cache, cross_kv=cross_kv, causal_scheduling=causal_scheduling,
+                                from_zero=from_zero)
+    return (tp.reduce_from_model(out) if split else out), new_cache
+
+
+def _attention(params, x, *, n_heads, n_kv_heads, head_dim, impl, causal, pos_type, rope_theta, positions,
+               cache, cross_kv, causal_scheduling, from_zero):
+    """:func:`attention_apply` on this rank's heads (its output projection
+    a partial sum when they are split)."""
     b, s = x.shape[0], x.shape[1]
     scale = 1.0 / float(head_dim) ** 0.5
     new_cache = None
@@ -230,7 +262,7 @@ def attention_apply(
         q = (x @ wq).reshape(b, s, n_heads, head_dim).transpose(1, 2)
         if "bqkv" in params:
             q = q + params["bqkv"][None, :n_heads, None, :]
-        k, v = cross_kv
+        k, v = (tp.whole(t, -1, head_dim) for t in cross_kv)
         out = _attend(q, k, v, impl=impl, causal=False, kv_offset=0, scale=scale)
         return torch.einsum("bhsf,hfd->bsd", out, params["wo"]), None
     q, k, v = _project_qkv(params, x, n_heads, n_kv_heads)
@@ -242,14 +274,21 @@ def attention_apply(
             q = apply_rope(q, positions, rope_theta)
             k = apply_rope(k, positions, rope_theta)
         ck, cv = cache["k"], cache["v"]
-        ck[:, :, pos : pos + s] = k.to(ck.dtype)
-        cv[:, :, pos : pos + s] = v.to(cv.dtype)
+        local = ck.shape[-1]  # head_dim, or this rank's block of it
+        ck[:, :, pos : pos + s] = tp.own_block(k, -1, local).to(ck.dtype)
+        cv[:, :, pos : pos + s] = tp.own_block(v, -1, local).to(cv.dtype)
         new_cache = {"k": ck, "v": cv, "pos": pos + s}
+        if local != head_dim:  # the mesh splits head_dim: attend over the whole cache
+            ck, cv = tp.gather_model(ck, -1), tp.gather_model(cv, -1)
         S = ck.shape[2]
         # Causality against absolute positions also hides cache slots
         # beyond pos+s (they sit in every query's causal future).
         if s > 8 and impl != "naive":
-            if from_zero:
+            if from_zero and impl == "pallas":
+                # whole-prompt prefill through the flash kernel: at pos 0 the
+                # prompt's own K/V are the cache's only visible entries
+                out = _attend(q, k, v, impl="pallas", causal=True, kv_offset=0, scale=scale)
+            elif from_zero:
                 # whole-prompt prefill: pos == 0, static trip counts
                 bq = 2048 if s >= 8192 else 512
                 out = _attend_xla_flash(

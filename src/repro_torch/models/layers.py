@@ -9,6 +9,12 @@ RoPE compute in float32 and return the input's dtype, sinusoidal
 embeddings are float32, the cross-entropy runs in float32.  The GELU is
 ``jax.nn.gelu``'s default, the tanh approximation.  Initializers draw from
 an explicit ``torch.Generator``.
+
+Under tensor parallelism (:mod:`repro_torch.sharding.tp`, a context the
+mesh layer sets) the MLP modules are Megatron's pair: their parameters are
+the rank's f columns of the up projection and f rows of the down
+projection, the input enters through ``copy_to_model`` and the partial
+product is summed by ``reduce_from_model``.
 """
 
 from __future__ import annotations
@@ -21,15 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def check_model_axis(mesh_axes: tuple, what: str) -> None:
-    """``NotImplementedError`` for a "model" mesh axis above 1 (the
-    reference's ``mesh_axes`` are layout hints; a "model" axis of 1 needs
-    none)."""
-    tp = dict(mesh_axes).get("model", 1)
-    if tp > 1:
-        raise NotImplementedError(
-            f"a 'model' mesh axis of size {tp} ({what}) is not ported yet (ROADMAP.md Queue 1, item 5e)")
+from repro_torch.sharding import tp
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -138,7 +136,16 @@ class SwiGLU(nn.Module):
         self.w_down.copy_(dense_init(gen, f, d, self.w_down.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return swiglu(self.w_gu, self.w_down, x)
+        return parallel_mlp(swiglu, self.w_gu, self.w_down, x)
+
+
+def parallel_mlp(fn, w_up: torch.Tensor, w_down: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``fn(w_up, w_down, x)``; column- then row-parallel when the TP
+    context splits the MLP hidden dim (the weights are then the rank's)."""
+    ctx = tp.active()
+    if ctx is None or not ctx.mlp:
+        return fn(w_up, w_down, x)
+    return tp.reduce_from_model(fn(w_up, w_down, tp.copy_to_model(x)))
 
 
 def swiglu(w_gu: torch.Tensor, w_down: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -162,7 +169,7 @@ class GeluMLP(nn.Module):
         self.w_down.copy_(p["w_down"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return gelu_mlp(self.w_up, self.w_down, x)
+        return parallel_mlp(gelu_mlp, self.w_up, self.w_down, x)
 
 
 def gelu_mlp_init(gen: torch.Generator, d: int, f: int, dtype) -> dict:

@@ -76,6 +76,7 @@ from repro_torch.models.layers import (
     sinusoidal_embed,
 )
 from repro_torch.models.ssm import Mamba2, init_mamba_cache
+from repro_torch.sharding import tp
 from repro_torch.models.transformer import (
     DecoderXBlock,
     DenseBlock,
@@ -376,6 +377,8 @@ class WhisperLM(LM):
         read them from there."""
         if cache is None or from_zero:
             kvs, pos0 = self.cross_kvs(self.encode(frames, cfg), cfg), 0
+            if cache is not None:  # kept as the cache holds them (a mesh may split them)
+                kvs = tuple(tp.to_layout(t, like) for t, like in zip(kvs, cache["cross"]))
         else:
             kvs, pos0 = cache["cross"], cache["self"]["pos"]
         x = self.dec_embed(tokens, pos0, cfg)
@@ -422,34 +425,48 @@ def _zamba_groups(cfg: ArchConfig):
     return n_groups, cfg.n_layers - n_groups * cfg.attn_every
 
 
+def _vocab_split() -> bool:
+    ctx = tp.active()
+    return ctx is not None and ctx.vocab
+
+
 def _logits(params: LM, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The logits of ``h``; under a vocab-split TP context this rank's
+    vocab block of them (``embed``/``lm_head`` are then its rows/columns)."""
     h = rmsnorm(params.ln_f.scale, h, cfg.norm_eps)
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    start = 0
+    if _vocab_split():
+        h = tp.copy_to_model(h)
+        start = tp.active().rank * w.shape[1]
     logits = h @ w.to(h.dtype)
     if cfg.vocab_padded != cfg.vocab:
-        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
+        pad = start + torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
         logits = logits.masked_fill(pad, torch.finfo(logits.dtype).min)
     return logits
 
 
 def _embed(params: LM, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     # gather then cast: the same values as the reference's cast-then-gather
+    if _vocab_split():
+        return tp.vocab_embed(params.embed, tokens).to(dtype_of(cfg.dtype))
     return params.embed[tokens].to(dtype_of(cfg.dtype))
 
 
-def _lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
-
-
 def head_loss(params: LM, h: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The scoring loss from the backbone's final hidden states ``h``."""
+    """The scoring loss from the backbone's final hidden states ``h`` (over
+    vocab-split logits under a vocab-split TP context: never gathered)."""
     if cfg.family == "vlm":
         # the logits that predict the tokens: from the last patch on (the
         # reference slices the full logits; a head over the rows it keeps
         # gives the same values)
         v = cfg.vision_tokens
-        return cross_entropy_loss(_logits(params, h[:, v - 1 : -1], cfg), tokens)
-    return _lm_loss(_logits(params, h, cfg), tokens)
+        logits, labels = _logits(params, h[:, v - 1 : -1], cfg), tokens
+    else:
+        logits, labels = _logits(params, h, cfg)[:, :-1], tokens[:, 1:]
+    if _vocab_split():
+        return tp.vocab_cross_entropy(logits, labels)
+    return cross_entropy_loss(logits, labels)
 
 
 def _bundle(cfg: ArchConfig, device: torch.device, init_cache: Callable) -> ModelBundle:

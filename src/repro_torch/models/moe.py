@@ -25,8 +25,8 @@ training run repeat bitwise.
 The expert products are ``einsum``s, as in the reference (no kernel there
 either).
 
-Over a data mesh (``mesh_axes`` with a "model" axis of size 1) the layer
-sees only its rank's tokens, where the reference's ``moe_apply`` under
+Over a mesh whose "data" axis splits the batch the layer sees only its
+rank's tokens, where the reference's ``moe_apply`` under
 GSPMD sees the global token count.  The capacity and each pair's slot are
 global there: ``C = capacity_of(T_global, ...)``, and a pair's position in
 its expert is its rank in a stable sort over the global (token, choice)
@@ -35,8 +35,15 @@ order.  Batch rows are split across ranks in rank-major blocks, so inside
 the pairs routed there by the ranks below it (an all-gather of one count an
 expert), and every rank drops exactly the pairs the global dispatch drops.
 The reference's expert-parallel layout hints (``mesh_axes``) carry no
-arithmetic and are accepted as such; a "model" axis above 1 (expert
-parallelism) raises ``NotImplementedError`` (ROADMAP.md Queue 1, item 5e).
+arithmetic and are accepted as such.  Expert parallelism comes from the
+tensor-parallel context (:mod:`repro_torch.sharding.tp`) the mesh layer
+sets: the expert weights are then this model rank's ``E_pad / tp``
+experts, the router stays replicated and every model rank routes the same
+tokens (the capacity and drops of the global batch, as above), the
+renormalised weights and the tokens enter through ``copy_to_model``, each
+rank fills and runs only its own experts' slots, and the weighted combine
+(its experts' rows of each token, zeros for the others) is summed over
+"model" in float32; a shared expert is column- then row-parallel.
 
 Routing ties: ``torch.topk`` and ``jax.lax.top_k`` may order equal router
 logits differently; on inputs without ties the two route alike.  The
@@ -56,7 +63,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import SwiGLU, check_model_axis, dense_init, normal, swiglu
+from repro_torch.models.layers import SwiGLU, parallel_mlp, dense_init, normal, swiglu
+from repro_torch.sharding import tp
 
 
 def _expert_init(gen: torch.Generator, e: int, d_in: int, d_out: int, dtype) -> torch.Tensor:
@@ -208,40 +216,51 @@ def route(router: torch.Tensor, tokens: torch.Tensor, *, top_k: int, capacity_fa
 def moe_apply(params: Mapping, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
               mesh_axes: tuple = ()) -> torch.Tensor:
     """x: (b, s, d) -> (b, s, d).  ``mesh_axes``: the reference's layout
-    hints, accepted while the "model" axis is 1 (module docstring)."""
-    check_model_axis(mesh_axes, "expert parallelism")
+    hints; the tensor-parallel context decides expert parallelism (module
+    docstring)."""
+    del mesh_axes
     b, s, d = x.shape
-    e_pad = params["w_gate"].shape[0]
+    ctx = tp.active()
+    ep = ctx is not None and ctx.experts
+    e_local = params["w_gate"].shape[0]  # this rank's experts (all of them without EP)
+    e_pad = e_local * ctx.size if ep else e_local
     tokens = x.reshape(-1, d)
-    T = tokens.shape[0]
     r = route(params["router"], tokens, top_k=top_k, capacity_factor=capacity_factor, e_pad=e_pad)
     C, keep = r.capacity, r.keep
-    slots = (r.slot_e, r.slot_c)
-
-    # dispatch: (E_pad, C, d) buffer (+ the spare row and column); dropped pairs write zeros
-    payload = torch.where(keep[:, None], tokens[r.sorted_t], 0.0).to(x.dtype)
-    buf = torch.zeros((e_pad + 1, C + 1, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put(slots, payload)[:e_pad, :C]
-    g = F.silu(torch.einsum("ecd,edf->ecf", buf, params["w_gate"]))
-    u = torch.einsum("ecd,edf->ecf", buf, params["w_up"])
-    eout = torch.einsum("ecf,efd->ecd", g * u, params["w_down"])  # (E_pad, C, d)
-
-    # combine: per-slot renormalised weights (a token's kept weights summed
-    # over its choices), every slot's row weighted, then each token's
-    # choices gathered from their slots (a dropped pair from the zero row
-    # past the last slot) and summed
+    # per-pair renormalised weights: a token's kept weights summed over its choices
     w_kept = torch.where(keep, r.sorted_w, 0.0)
     denom = torch.sum(w_kept[r.pair_of], dim=1)
     w_norm = w_kept / torch.clamp(denom[r.sorted_t], min=1e-9)
-    w_slot = torch.zeros((e_pad + 1, C + 1), dtype=torch.float32, device=x.device)
-    w_slot = w_slot.index_put(slots, torch.where(keep, w_norm, 0.0))[:e_pad, :C]
-    contrib = eout * w_slot[..., None].to(eout.dtype)  # (E_pad, C, d)
+    if ep:
+        lo = ctx.rank * e_local
+        mine = keep & (r.slot_e >= lo) & (r.slot_e < lo + e_local)
+        slots = (torch.where(mine, r.slot_e - lo, e_local), torch.where(mine, r.slot_c, C))
+        inputs, w_norm = tp.copy_to_model(tokens), tp.copy_to_model(w_norm)
+    else:
+        mine, slots, inputs = keep, (r.slot_e, r.slot_c), tokens
+
+    # dispatch: (E, C, d) buffer (+ the spare row and column); dropped pairs
+    # (and under EP other ranks' pairs) write zeros
+    payload = torch.where(mine[:, None], inputs[r.sorted_t], 0.0).to(x.dtype)
+    buf = torch.zeros((e_local + 1, C + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put(slots, payload)[:e_local, :C]
+    g = F.silu(torch.einsum("ecd,edf->ecf", buf, params["w_gate"]))
+    u = torch.einsum("ecd,edf->ecf", buf, params["w_up"])
+    eout = torch.einsum("ecf,efd->ecd", g * u, params["w_down"])  # (E, C, d)
+
+    # combine: every slot's row weighted, then each token's choices
+    # gathered from their slots (a dropped pair from the zero row past the
+    # last slot) and summed
+    w_slot = torch.zeros((e_local + 1, C + 1), dtype=torch.float32, device=x.device)
+    w_slot = w_slot.index_put(slots, torch.where(mine, w_norm, 0.0))[:e_local, :C]
+    contrib = eout * w_slot[..., None].to(eout.dtype)  # (E, C, d)
     rows = torch.cat([contrib.reshape(-1, d).to(torch.float32), contrib.new_zeros((1, d), dtype=torch.float32)])
-    slot_row = torch.where(keep, r.slot_e * C + r.slot_c, e_pad * C)
-    out = torch.sum(rows[slot_row[r.pair_of]], dim=1).to(x.dtype)  # (T, d)
+    slot_row = torch.where(mine, slots[0] * C + slots[1], e_local * C)
+    out = torch.sum(rows[slot_row[r.pair_of]], dim=1)  # (T, d) float32
+    out = (tp.reduce_from_model(out) if ep else out).to(x.dtype)
 
     if "shared" in params:
-        out = out + swiglu(params["shared"]["w_gu"], params["shared"]["w_down"], tokens)
+        out = out + parallel_mlp(swiglu, params["shared"]["w_gu"], params["shared"]["w_down"], tokens)
     return out.reshape(b, s, d)
 
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import RMSNorm, dense_init, dtype_of, normal, rmsnorm
+from repro_torch.sharding import tp
 
 
 def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
@@ -228,9 +229,23 @@ def mamba2_apply(
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Mamba2 block.  ``cache={"conv": (b, k-1, conv_dim), "state": (b, h,
     p, n)}`` enables single- or few-token decode and returns the new cache
-    (new tensors; the caller stores them); ``cache=None`` is scoring."""
+    (new tensors; the caller stores them); ``cache=None`` is scoring.
+
+    Over a "model" mesh axis the block is computed whole on every model rank
+    (the rules split ``in_proj`` on its fused ``[z | x | B | C | dt]``
+    columns, which do not fall on SSD heads): replicated compute over
+    gathered weights.  A cache the mesh splits (``conv`` on ``conv_dim``,
+    ``state`` on heads) is gathered here and the new one cut back to this
+    rank's block."""
     bsz, l, _ = hidden.shape
     h, p, g, n = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
+    conv_dim = cfg.d_inner + 2 * g * n
+    if cache is not None and (cache["conv"].shape[-1], cache["state"].shape[-3]) != (conv_dim, h):
+        local = {k: t.shape for k, t in cache.items()}
+        whole = {"conv": tp.whole(cache["conv"], -1, conv_dim), "state": tp.whole(cache["state"], -3, h)}
+        out, new = mamba2_apply(params, hidden, cfg, cache=whole)
+        return out, {"conv": tp.own_block(new["conv"], -1, local["conv"][-1]),
+                     "state": tp.own_block(new["state"], -3, local["state"][-3])}
     proj = hidden @ params["in_proj"]
     z, xBC_raw, dt_raw = _split_proj(proj, cfg)
     dt = _softplus(dt_raw.to(torch.float32) + params["dt_bias"])  # (b,l,h)

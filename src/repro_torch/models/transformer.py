@@ -35,6 +35,7 @@ from repro_torch.models.attention import Attention, attention_apply, qkv_slices
 from repro_torch.models.layers import GeluMLP, RMSNorm, SwiGLU, dtype_of, normal, rmsnorm
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.ssm import Mamba2
+from repro_torch.sharding import tp
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
@@ -347,10 +348,17 @@ class DecoderXBlock(nn.Module):
 
 def cross_kv_from_encoder(block: DecoderXBlock, enc_out: torch.Tensor, cfg: ArchConfig):
     """One decoder layer's cross-attention (k, v), each (b, hkv, s_enc, hd),
-    from the encoder's output (computed once, at prefill)."""
+    from the encoder's output (computed once, at prefill); under a
+    head-split TP context this rank's kv heads, the encoder output entering
+    through ``copy_to_model``."""
     b, s, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    _, wk, wv = qkv_slices(block.cross_attn.params(), cfg.n_heads, cfg.n_kv_heads, hd)
-    k = (enc_out @ wk).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = (enc_out @ wv).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    ctx = tp.active()
+    if ctx is not None and ctx.heads:
+        hq, hkv = hq // ctx.size, hkv // ctx.size
+        enc_out = tp.copy_to_model(enc_out)
+    _, wk, wv = qkv_slices(block.cross_attn.params(), hq, hkv, hd)
+    k = (enc_out @ wk).reshape(b, s, hkv, hd).transpose(1, 2)
+    v = (enc_out @ wv).reshape(b, s, hkv, hd).transpose(1, 2)
     return k, v

@@ -6,11 +6,11 @@ tensor mapping, or the reference's nested parameter tree; see
 global-norm clip, bias correction, the clamp of ``v`` at zero.
 
 Moment tensors take the parameters' specs (``state_pspecs``), so over a
-data mesh each rank updates its own shards of the parameters, gradients
-and moments; the one number that spans ranks is the global norm, whose
-per-leaf squared sums ``update`` hands to ``norm_terms`` (the mesh step's
-sums a split leaf's partial sums across the ranks) before adding them in
-leaf order.
+mesh each rank updates its own (data, model) blocks of the parameters,
+gradients and moments; the one number that spans ranks is the global
+norm, whose per-leaf squared sums ``update`` hands to ``norm_terms`` (the
+mesh step's sums each leaf's blocks across the data and model ranks,
+every element once) before adding them in leaf order.
 """
 
 from __future__ import annotations

@@ -127,24 +127,94 @@ def compressed_psum(x: torch.Tensor, mesh=None, axis: str = "data", *, bits: int
 
 
 # ---------------------------------------------------------------------------
-# over a data mesh
+# over a mesh
 
 
-def _runs(layout, name: str):
-    """``(run, period)`` of a split parameter: data rank ``s`` holds, of its
-    row-major flat index, every ``[o * period + s * run, o * period + (s +
-    1) * run)``."""
-    shape, k = layout.shapes[name], layout.dims[name]
-    inner = math.prod(shape[k + 1:])
-    return shape[k] // layout.n * inner, shape[k] * inner
+def _level(shape, dim: int, n: int):
+    """``(run, period)`` of one split: block ``i`` of ``n`` along ``dim``
+    holds, of a tensor of ``shape``'s row-major flat index, every ``[o *
+    period + i * run, o * period + (i + 1) * run)``."""
+    inner = math.prod(shape[dim + 1:])
+    return shape[dim] // n * inner, shape[dim] * inner
+
+
+def _below1(run: int, period: int, i: int, x: int) -> int:
+    """How many of block ``i``'s elements lie below flat index ``x``."""
+    o, rem = divmod(x, period)
+    return o * run + min(max(rem - i * run, 0), run)
 
 
 def _below(layout, name: str, s: int, x: int) -> int:
-    """How many of data rank ``s``'s elements of ``name`` lie below flat
-    index ``x``: where ``[0, x)`` starts in its local flat shard."""
-    run, period = _runs(layout, name)
-    o, rem = divmod(x, period)
-    return o * run + min(max(rem - s * run, 0), run)
+    """How many of holder ``s``'s elements of ``name`` lie below flat index
+    ``x``: where ``[0, x)`` starts in its local flat block.  A (data, model)
+    block is a split of a split: the outer dim's block, then the inner's
+    within it (a block's row-major order keeps the whole's order)."""
+    shape, at = list(layout.shapes[name]), layout.coords(s)
+    for dim, axis, n in layout.splits(name):
+        x = _below1(*_level(shape, dim, n), at[axis], x)
+        shape[dim] //= n
+    return x
+
+
+def _interleave(pieces, lo: int, hi: int, run: int, period: int):
+    """The flat range ``[lo, hi)`` of a tensor split ``n = len(pieces)``
+    ways (``(run, period)``) from each block's elements of it, in order."""
+    n = len(pieces)
+    o_lo, o_hi = lo // period, (hi - 1) // period + 1
+    ext = torch.zeros((n, (o_hi - o_lo) * run), dtype=pieces[0].dtype, device=pieces[0].device)
+    for i, piece in enumerate(pieces):
+        a = _below1(run, period, i, lo) - o_lo * run
+        ext[i, a : a + piece.numel()] = piece
+    flat = ext.view(n, o_hi - o_lo, run).transpose(0, 1).reshape(-1)
+    return flat[lo - o_lo * period : hi - o_lo * period]
+
+
+def _place(layout, name: str, lo: int, hi: int, part_of):
+    """The flat range ``[lo, hi)`` of split ``name`` from each block's
+    elements of it (``part_of(coords)``: the block at those coordinates of
+    the splitting axes, in flat order), split level by split level."""
+    levels = layout.splits(name)
+
+    def rec(k, shape, lo, hi, at):
+        if k == len(levels):
+            return part_of(at)
+        dim, axis, n = levels[k]
+        run, period = _level(shape, dim, n)
+        inner = list(shape)
+        inner[dim] //= n
+        pieces = [rec(k + 1, inner, _below1(run, period, i, lo), _below1(run, period, i, hi), {**at, axis: i})
+                  for i in range(n)]
+        return _interleave(pieces, lo, hi, run, period)
+
+    return rec(0, list(layout.shapes[name]), lo, hi, {})
+
+
+def _pick(layout, name: str, lo: int, hi: int, values: torch.Tensor, s: int) -> torch.Tensor:
+    """Of the flat range ``[lo, hi)`` of ``name`` (``values``), the elements
+    holder ``s`` holds, in its flat order (the inverse of :func:`_place`)."""
+    shape, at = list(layout.shapes[name]), layout.coords(s)
+    for dim, axis, n in layout.splits(name):
+        run, period = _level(shape, dim, n)
+        i = at[axis]
+        o_lo, o_hi = lo // period, (hi - 1) // period + 1
+        flat = values.new_zeros((o_hi - o_lo) * period)
+        flat[lo - o_lo * period : hi - o_lo * period] = values
+        mine = flat.view(o_hi - o_lo, n, run)[:, i].reshape(-1)
+        a = _below1(run, period, i, lo) - o_lo * run
+        lo, hi = _below1(run, period, i, lo), _below1(run, period, i, hi)
+        values = mine[a : a + hi - lo]
+        shape[dim] //= n
+    return values
+
+
+def _sends(layout, name: str, s: int, d: int) -> bool:
+    """Whether holder ``s`` sends its values of ``name`` to holder ``d``:
+    along every axis that does not split it, the one with ``d``'s
+    coordinate does (so a block held by several ranks is sent once, and a
+    whole tensor is never sent)."""
+    split = {axis for _dim, axis, _n in layout.splits(name)}
+    a, b = layout.coords(s), layout.coords(d)
+    return all(a[x] == b[x] for x in ("data", "model") if x not in split)
 
 
 #: float32 bytes of pencils a rank corrects in one ``engine.correct`` call:
@@ -155,35 +225,8 @@ def _below(layout, name: str, s: int, x: int) -> int:
 _CALL_BYTES = 512 << 20
 
 
-def _place(layout, name: str, lo: int, hi: int, parts):
-    """The flat range ``[lo, hi)`` of split ``name`` from each data rank's
-    elements of it (``parts[s]``, in flat order)."""
-    run, period = _runs(layout, name)
-    o_lo, o_hi = lo // period, (hi - 1) // period + 1
-    n = layout.n
-    ext = torch.zeros((n, (o_hi - o_lo) * run), dtype=parts[0].dtype, device=parts[0].device)
-    for s in range(n):
-        a = _below(layout, name, s, lo) - o_lo * run
-        ext[s, a : a + parts[s].numel()] = parts[s]
-    flat = ext.view(n, o_hi - o_lo, run).transpose(0, 1).reshape(-1)
-    return flat[lo - o_lo * period : hi - o_lo * period]
-
-
-def _pick(layout, name: str, lo: int, hi: int, values: torch.Tensor, s: int) -> torch.Tensor:
-    """Of the flat range ``[lo, hi)`` of split ``name`` (``values``), the
-    elements data rank ``s`` holds, in flat order (the inverse of
-    :func:`_place`)."""
-    run, period = _runs(layout, name)
-    o_lo, o_hi = lo // period, (hi - 1) // period + 1
-    flat = values.new_zeros((o_hi - o_lo) * period)
-    flat[lo - o_lo * period : hi - o_lo * period] = values
-    mine = flat.view(o_hi - o_lo, layout.n, run)[:, s].reshape(-1)
-    a = _below(layout, name, s, lo) - o_lo * run
-    return mine[a : a + _below(layout, name, s, hi) - _below(layout, name, s, lo)]
-
-
 def _exchange(send_parts, recv_sizes, layout):
-    """One all-to-all over the data ranks: ``send_parts[d]`` (a list of
+    """One all-to-all over the (data, model) ranks: ``send_parts[d]`` (a list of
     float32 tensors) to rank ``d``; returns what each rank sent here, split
     by source."""
     send = torch.cat([t for parts in send_parts for t in parts]) if any(send_parts) else None
@@ -211,14 +254,15 @@ def compress_sharded_gradients(
     engine: Optional[CorrectionEngine] = None,
 ) -> Dict[str, torch.Tensor]:
     """:func:`compress_gradients` of the gathered, reduced gradient, over a
-    data mesh, without gathering a leaf.
+    mesh, without gathering a leaf.
 
-    ``grads``: this rank's gradient shards by state dict name, lying as
-    ``layout`` (a :class:`repro_torch.sharding.fsdp.MeshLayout`) says;
+    ``grads``: this rank's gradient blocks by state dict name, lying as
+    ``layout`` (a :class:`repro_torch.sharding.fsdp.MeshLayout`) says
+    (split over "data", "model" or both);
     ``leaves``: the reference tree's leaves in its leaf order, each the
     port names stacked into it, in stack order (``MeshTrainStep.
     reference_leaves``).  The result is what the one-device call gives on
-    the reference-layout tree, cut to this rank's shards:
+    the reference-layout tree, cut to this rank's blocks:
 
     - each leaf's ``E = E_rel * max|g|`` over the whole leaf (an all-reduce
       of the max), ``Delta = Delta_rel * block * E``;
@@ -226,17 +270,19 @@ def compress_sharded_gradients(
       and cut every ``min(block, max(size, 2))`` values, the last zero
       padded; leaves of fewer than 2 values pass through;
     - per effective block, the pencils of every leaf in leaf order are cut
-      into contiguous ranges, one a data rank, and each rank corrects its
+      into contiguous ranges, one a (data, model) rank of the pod, and each
+      rank corrects its
       range through ``engine.correct`` (the batched loop; kernels 3p/4p
       with a ``pallas`` engine), at most :data:`_CALL_BYTES` of pencils a
       call (at a small model's size one call: the one-device call).
-      A rank's values reach it by one all-to-all a call, and the
-      corrections go back by another; a rank left with one pencil of a
+      A rank's values reach it by one all-to-all a call (each value from
+      one of the ranks that hold it), and the corrections go back by
+      another (to every rank that holds it); a rank left with one pencil of a
       larger batch corrects it beside a zero line (the CPU's FFTs are
       batch-invariant only for two lines or more).
 
     The pencils' rows are independent, so the result is bitwise the same
-    at every world size and equal to the one-device call's.
+    at every mesh shape and equal to the one-device call's.
     """
     n, rank = layout.n, layout.rank
     work = []  # (names, numel of one, total, block, E, Delta)
@@ -296,10 +342,8 @@ def compress_sharded_gradients(
             plans = [plan(d, c) for d in range(n)]
 
             def held(s, name, lo, hi, d):
-                """How many values of piece (name, lo, hi) rank s holds for rank d."""
-                if layout.split(name):
-                    return _below(layout, name, s, hi) - _below(layout, name, s, lo)
-                return hi - lo if s == d else 0
+                """How many values of piece (name, lo, hi) rank s sends rank d."""
+                return _below(layout, name, s, hi) - _below(layout, name, s, lo) if _sends(layout, name, s, d) else 0
 
             # forward: each rank's values of every rank's pieces
             send = []
@@ -307,10 +351,8 @@ def compress_sharded_gradients(
                 parts = []
                 for f, j, lo, hi in plans[d]:
                     name, m = group[f][0][j], group[f][4]
-                    if layout.split(name):
+                    if _sends(layout, name, rank, d):
                         parts.append(err_of(name, _below(layout, name, rank, lo), _below(layout, name, rank, hi), m))
-                    elif d == rank:
-                        parts.append(err_of(name, lo, hi, m))
                 send.append(parts)
             mine = plans[rank]
             recv = _exchange(send, [sum(held(s, group[f][0][j], lo, hi, rank) for f, j, lo, hi in mine)
@@ -325,7 +367,9 @@ def compress_sharded_gradients(
                     k = held(s, name, lo, hi, rank)
                     parts.append(recv[s][at[s] : at[s] + k])
                     at[s] += k
-                piece = _place(layout, name, lo, hi, parts) if layout.split(name) else parts[rank]
+                here = layout.coords(rank)
+                piece = _place(layout, name, lo, hi,
+                               lambda pos, parts=parts: parts[layout.holder({**here, **pos})])
                 if leaf_of and leaf_of[-1] == f:
                     tensors[-1].append(piece)
                 else:
@@ -352,21 +396,15 @@ def compress_sharded_gradients(
                 pos[f] = start + hi - lo
                 name = group[f][0][j]
                 for s in range(n):
-                    if layout.split(name):
-                        back[s].append(_pick(layout, name, lo, hi, values, s))
-                    else:
-                        back[s].append(values)
-            recv = _exchange(back, [sum(held(rank, group[f][0][j], lo, hi, d) if layout.split(group[f][0][j])
-                                        else hi - lo for f, j, lo, hi in plans[d]) for d in range(n)], layout)
+                    back[s].append(_pick(layout, name, lo, hi, values, s))
+            recv = _exchange(back, [sum(_below(layout, group[f][0][j], rank, hi) - _below(layout, group[f][0][j], rank, lo)
+                                        for f, j, lo, hi in plans[d]) for d in range(n)], layout)
             del back
             for d in range(n):
                 at = 0
                 for f, j, lo, hi in plans[d]:
                     name = group[f][0][j]
-                    if layout.split(name):
-                        a, b = _below(layout, name, rank, lo), _below(layout, name, rank, hi)
-                    else:
-                        a, b = lo, hi
+                    a, b = _below(layout, name, rank, lo), _below(layout, name, rank, hi)
                     corr = recv[d][at : at + b - a]
                     at += b - a
                     g = grads[name].reshape(-1)[a:b]

@@ -1,4 +1,4 @@
-"""Fault-tolerant trainer, on one device or over a data mesh: restart,
+"""Fault-tolerant trainer, on one device or over a mesh: restart,
 stragglers, failure injection.
 
   * restart-from-latest: construction restores the newest committed
@@ -23,17 +23,18 @@ stages, gradient compression and the checkpoint codec (``None``: the
 device's default engine, ``fft_impl="xla"`` as the reference's; a
 ``"pallas"`` engine runs the per-pencil kernels).
 
-``mesh`` (a ``DeviceMesh`` whose "model" axis has size 1; every rank of
-it builds its own Trainer) trains with each rank holding its shards of the
-parameters and AdamW's moments (``sharding/fsdp.py``: the step of
-``launch/steps.make_step``, the gradients compressed over the mesh): the
-pipeline's global batch is split by rank, checkpoints hold the reference's
-full arrays (each leaf gathered to rank 0 one shard at a time; rank 0
-writes, the other ranks wait at a barrier), and a restore reads them at
-any world size and re-shards.  ``params`` is then the rank's shards by
-state dict name; ``state()`` is the full state on rank 0 and ``None`` on
-the others.  A "model" axis above 1 raises ``NotImplementedError``
-(ROADMAP.md Queue 1, item 5e).
+``mesh`` (a ``DeviceMesh`` of ("data", "model") or ("pod", "data",
+"model") axes; every rank of it builds its own Trainer) trains with each
+rank holding its (data, model) blocks of the parameters and AdamW's
+moments (``sharding/fsdp.py``: the step of ``launch/steps.make_step``,
+tensor and expert parallelism over "model", the gradients compressed over
+the mesh): the pipeline's global batch is split over the data ranks,
+checkpoints hold the reference's full arrays (each leaf gathered to rank 0
+one block at a time; rank 0 writes, the other ranks wait at a barrier), and
+a restore reads them at any mesh shape and re-shards (data rank 0 of model
+rank 0 decodes and scatters each leaf's blocks).  ``params`` is then the
+rank's blocks by state dict name; ``state()`` is the full state on rank 0
+and ``None`` on the others.
 """
 
 from __future__ import annotations
@@ -89,7 +90,7 @@ class Trainer:
             from repro_torch.sharding import fsdp
             from repro_torch.sharding.rules import mesh_sizes
 
-            fsdp.require_data_mesh(mesh, "Trainer")
+            fsdp.require_device_mesh(mesh, "Trainer")
             arch_cfg = dataclasses.replace(arch_cfg, mesh_axes=tuple(mesh_sizes(mesh).items()))
             self.layout = fsdp.MeshLayout(arch_cfg, mesh)
             if device is not None and torch.device(device).type != self.layout.device.type:
@@ -147,11 +148,11 @@ class Trainer:
         """This rank's shards: of the newest checkpoint (full arrays, any
         world size), else of the one-device initialization.
 
-        Data rank 0 alone reads the checkpoint, one leaf at a time
-        (:meth:`CheckpointManager.restore_leaves`), and hands each of the
-        leaf's port tensors to the data ranks as it comes: split ones
-        scattered (each rank receives its shard), whole ones broadcast.  No
-        rank holds more than a few leaves on its host."""
+        Data rank 0 of model rank 0 alone reads the checkpoint, one leaf at
+        a time (:meth:`CheckpointManager.restore_leaves`), and hands each of
+        the leaf's port tensors to the (data, model) ranks as it comes:
+        split ones scattered (each rank receives its block), whole ones
+        broadcast.  No rank holds more than a few leaves on its host."""
         import torch.distributed as dist
 
         from repro_torch import tree
@@ -201,9 +202,10 @@ class Trainer:
             print(f"[trainer] restored checkpoint at step {self.start_step}")
 
     def _hand_out(self, name, whole, shape, dtype) -> torch.Tensor:
-        """This rank's part of one whole tensor that data rank 0 holds
-        (``whole``, on its host; ``None`` elsewhere): its shard of a split
-        parameter ``name`` (scattered), else the whole (broadcast)."""
+        """This rank's part of one whole tensor that rank 0 of the (data,
+        model) ranks holds (``whole``, on its host; ``None`` elsewhere): its
+        block of a split parameter ``name`` (scattered), else the whole
+        (broadcast)."""
         import torch.distributed as dist
 
         L = self.layout

@@ -1,9 +1,10 @@
 """Distribution over ``torch.distributed``: the pencil-decomposed rFFT
-(``dist_fft``), the LM's partition rules (``rules``) and fully sharded data
-parallelism over a data mesh (``fsdp``).
+(``dist_fft``), the LM's partition rules (``rules``), tensor and expert
+parallelism over a mesh's "model" axis (``tp``) and fully sharded data
+parallelism with them (``fsdp``).
 
 The reference's ``sharding/pipeline.py`` (GPipe) is not ported yet
-(ROADMAP.md Queue 1, item 5e); ``shardmap.py`` is a JAX-version shim.
+(ROADMAP.md Queue 1); ``shardmap.py`` is a JAX-version shim.
 """
 
 from repro_torch.sharding.dist_fft import (

@@ -1,42 +1,72 @@
-"""Fully sharded data parallelism over a data mesh ("model" axis of size 1).
+"""Fully sharded data parallelism over "data", tensor and expert
+parallelism over "model".
 
 The reference trains under GSPMD: its partition rules
 (:mod:`repro_torch.sharding.rules`) place every large weight's FSDP dim on
-"data", and XLA all-gathers the parameters forward and reduce-scatters the
-gradients backward.  The port does the same by hand, in the open:
+"data" and its head, hidden, vocab or expert dim on "model", and XLA
+all-gathers the parameters forward, reduce-scatters the gradients backward
+and inserts the tensor-parallel collectives.  The port does the same by
+hand, in the open:
 
-* **State.**  Each rank holds its shard of every parameter, gradient and
-  AdamW moment: the parameter split along the dim its rule gives "data"
-  (the rules' divisibility guard makes every split even), whole where the
-  rule replicates it (norms, ``A_log``, the router, the projector).  The
-  "model" axis must be 1 (:func:`require_data_mesh`).
+* **State.**  Each rank holds its (data, model) block of every parameter,
+  gradient and AdamW moment, exactly as the rules' spec gives it (the
+  divisibility guard makes every split even; a tensor may be split on two
+  dims), whole where the rule replicates it (norms, ``A_log``, ``D``,
+  ``dt_bias``, the router, the projector).  The ranks that hold distinct
+  blocks are one pod's (data, model) ranks (:class:`MeshLayout`).
+* **Compute over "model".**  :mod:`repro_torch.sharding.tp` runs each
+  model rank on its heads, MLP hidden columns, experts and vocab block
+  (Megatron's operators).  Each parameter's :class:`Use` says what a
+  rank's compute reads: its block gathered over "data" where the stored
+  "model" split is the compute's (``wo``, the MLPs, the experts, ``embed``,
+  ``lm_head``); else the tensor gathered over "model" too and the rank's
+  part taken (``wqkv``/``bqkv`` on the head-split route, whose stored
+  split runs over the fused ``[q | k | v]`` axis, not over q, k and v
+  heads; whisper's unsplit ``mlp.w_up``), or read whole (every Mamba2
+  tensor and zamba2's ``in_proj``: the rules split ``in_proj`` on its
+  fused ``[z | x | B | C | dt]`` columns and ``conv_w``/``conv_b``/
+  ``out_proj`` on ``conv_dim``/``d_inner``, which do not fall on SSD heads,
+  so every model rank computes the block whole, replicated compute with
+  sharded storage; ``wqkv``/``bqkv``/``wo`` on the replicated-attention
+  route).  The gradient is that gather's transpose: where each model rank
+  used only its own part it is summed over "model" (reduce-scattered); where
+  every model rank computed the whole, each holds the same full gradient
+  and keeps its block with no sum (a sum would count it ``n_model``
+  times).  A parameter replicated over "model" gets the same gradient on
+  every model rank (the activations entering a split region do so through
+  ``copy_to_model``) and is not summed over "model".
 * **Forward.**  :class:`MeshTrainStep` runs the model as a list of
   segments (:func:`train_segments`: the embedding, each layer or layer
   group, the head), gathering one segment's parameters just before it runs
   and dropping them after, under ``torch.no_grad``; it keeps each
-  segment's inputs (the residual stream between blocks).
+  segment's inputs (the residual stream between blocks, replicated over
+  "model").
 * **Backward.**  Segments in reverse: gather the segment's parameters
-  again, recompute it under autograd from its kept inputs, and take
-  ``torch.autograd.grad`` of its outputs against the gradients arriving
-  from the segments after it.  ``autograd.grad`` fills no ``.grad`` and no
-  hook runs, so the reduction is explicit: a parameter's full gradient is
-  summed over every segment that reads it (zamba2's shared block in every
-  group, a tied embedding in the embedding and the head), then
-  reduce-scattered over the ranks that split the batch to this rank's shard
-  (the mean of the ranks' gradients of their own mean losses; every rank
-  holds as many tokens, so this is the gradient of the global mean).  Where the batch does
-  not divide, every rank computes the whole batch and nothing is reduced.
-  Only one segment's parameters and gradients are ever whole on a rank.
+  again, recompute it under autograd (and under the tensor-parallel
+  context) from its kept inputs, and take ``torch.autograd.grad`` of its
+  outputs against the gradients arriving from the segments after it.
+  ``autograd.grad`` fills no ``.grad`` and no hook runs, so the reduction is
+  explicit: a parameter's gradient is summed over every segment that reads
+  it (zamba2's shared block in every group, a tied embedding in the
+  embedding and the head), cut to the rank's "model" block as its
+  :class:`Use` says, then reduce-scattered over the ranks that split the
+  batch (the batch's data ranks only) to this rank's block (the mean of the
+  ranks' gradients of their own mean losses; every rank holds as many
+  tokens, so this is the gradient of the global mean).  Where the batch does
+  not divide, every rank computes the whole batch and nothing is reduced
+  over "data".  Only one segment's parameters and gradients are ever whole
+  on a rank.
 * **Routing.**  MoE layers run inside :func:`repro_torch.models.moe.
   token_split` when the batch is split, so their capacity and drops are the
-  global batch's, as under GSPMD.
+  global batch's, as under GSPMD; every model rank routes the same tokens.
 
 At one rank every gather and reduction is the identity, each segment's
 backward is the one-device autograd graph's for that block, and the step
-gives the one-device step's loss and parameters.
+gives the one-device step's loss and parameters; at a model size of 1 the
+tensor-parallel operators are the identity.
 
 :func:`init_shards` draws the one-device initialization (the same
-generator stream) and keeps each rank's shard, one tensor at a time;
+generator stream) and keeps each rank's block, one tensor at a time;
 :class:`MeshServe` runs prefill and decode steps with each layer's
 parameters gathered by a forward hook around that layer's call.
 """
@@ -59,40 +89,33 @@ from repro_torch.configs import ArchConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import RMSNorm
 from repro_torch.models.model import (
+    build_model,
     cross_kv_from_encoder,
     encoder_input,
     head_loss,
     lm_class,
     mamba_residual,
 )
-from repro_torch.sharding import dist_fft
-from repro_torch.sharding.rules import _names, batch_pspec, mesh_sizes, param_pspecs, to_shardings
+from repro_torch.sharding import dist_fft, tp
+from repro_torch.sharding.rules import _names, batch_pspec, cache_pspecs, mesh_sizes, param_pspecs, to_shardings
 
-ITEM_5E = "ROADMAP.md Queue 1, item 5e"
-
-
-def require_data_mesh(mesh, what: str = "this step"):
-    """``NotImplementedError`` unless ``mesh`` is a ``DeviceMesh`` whose
-    "model" axis has size 1 (tensor and expert parallelism are item 5e)."""
+def require_device_mesh(mesh, what: str = "this step"):
+    """``NotImplementedError`` unless ``mesh`` is a ``torch.distributed``
+    ``DeviceMesh`` (any of its "pod", "data" and "model" axes)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if not isinstance(mesh, DeviceMesh):
         raise NotImplementedError(
-            f"{what} runs over a torch.distributed DeviceMesh whose 'model' axis has size 1, got "
-            f"{type(mesh).__name__}; other meshes are not ported ({ITEM_5E})")
-    tp = mesh_sizes(mesh).get("model", 1)
-    if tp > 1:
-        raise NotImplementedError(
-            f"a 'model' mesh axis of size {tp} (tensor and expert parallelism) is not ported yet ({ITEM_5E})")
+            f"{what} runs over a torch.distributed DeviceMesh, got {type(mesh).__name__}")
 
 
-def _data_dim(spec) -> Optional[int]:
-    """The tensor dim a parameter spec splits over "data" (None: whole)."""
+def _axis_dim(spec, axis: str) -> Optional[int]:
+    """The tensor dim a parameter spec splits over ``axis`` (None: whole)."""
     for d, entry in enumerate(spec):
         names = _names(entry)
         if "pod" in names:
-            raise NotImplementedError(f"a parameter split over 'pod' ({spec}) is not ported ({ITEM_5E})")
-        if "data" in names:
+            raise NotImplementedError(f"a parameter split over 'pod' ({spec}) is not ported")
+        if axis in names:
             return d
     return None
 
@@ -131,17 +154,41 @@ class BatchSplit:
         return moe_mod.token_split(self.group, self.size, self.rank)
 
 
+@dataclasses.dataclass(frozen=True)
+class Use:
+    """How a model rank's compute reads one parameter: ``gather_model``,
+    all-gathered over "model" (beyond the data gather), then ``index``
+    (``(dim, indices)``, or None) taken.  ``grad`` says how the gradient of
+    the gathered tensor becomes the rank's block: ``"local"`` it is the
+    block's (over "model"), ``"own"`` every model rank computed the whole
+    and holds the same gradient (the rank keeps its block, no sum), ``"sum"``
+    each rank's covers its own part (summed over "model": reduce-scattered
+    when the tensor is split there, else all-reduced)."""
+
+    gather_model: bool = False
+    index: Optional[Tuple[int, torch.Tensor]] = None
+    grad: str = "local"
+
+
 class MeshLayout:
     """Where each parameter of ``cfg``'s model lies over ``mesh``.
 
     ``specs`` are the rules' specs of the port's state dict
     (:func:`repro_torch.sharding.rules.param_pspecs`), ``placements`` their
-    DTensor placements, ``dims[name]`` the dim split over "data" (None:
-    whole on every rank).  ``skeleton`` is the model on the meta device:
-    the step runs its modules with gathered tensors swapped in."""
+    DTensor placements, ``dims[name]`` the dim split over "data" and
+    ``model_dims[name]`` the one split over "model" (None: whole): each rank
+    holds its (data, model) block.  ``uses[name]`` (:class:`Use`) is how
+    its compute reads each one under ``tp_ctx``, the mesh's
+    tensor-parallel context.  ``skeleton`` is the model on the meta device:
+    the step runs its modules with gathered tensors swapped in.
+
+    The ranks that hold distinct blocks are the (data, model) ranks of one
+    pod: ``group``, ``n`` and ``rank`` (data-major: rank ``d * n_model +
+    m``); the data and model axes alone are ``data_group``/``n_data``/
+    ``data_rank`` and ``model_group``/``n_model``/``model_rank``."""
 
     def __init__(self, cfg: ArchConfig, mesh):
-        require_data_mesh(mesh)
+        require_device_mesh(mesh)
         self.cfg = cfg
         self.mesh = mesh
         self.sizes = mesh_sizes(mesh)
@@ -152,45 +199,122 @@ class MeshLayout:
         self.dtypes = {k: v.dtype for k, v in meta.items()}
         self.specs = param_pspecs(meta, mesh)
         self.placements = to_shardings(self.specs, mesh)
-        self.dims = {k: _data_dim(s) for k, s in self.specs.items()}
-        if "data" in self.sizes:
-            self.group, self.n, self.rank = dist_fft.mesh_axis(mesh, "data")
+        self.dims = {k: _axis_dim(s, "data") for k, s in self.specs.items()}
+        self.model_dims = {k: _axis_dim(s, "model") for k, s in self.specs.items()}
+        self.data_group, self.n_data, self.data_rank = axes_group(mesh, ("data",) if "data" in self.sizes else ())
+        self.model_group, self.n_model, self.model_rank = axes_group(mesh, ("model",) if "model" in self.sizes else ())
+        if self.n_model == 1:
+            self.group, self.n, self.rank = self.data_group, self.n_data, self.data_rank
+        elif self.n_data == 1:
+            self.group, self.n, self.rank = self.model_group, self.n_model, self.model_rank
         else:
-            self.group, self.n, self.rank = None, 1, 0
+            self.group, self.n, self.rank = axes_group(mesh, ("data", "model"))
+        if self.rank != self.data_rank * self.n_model + self.model_rank:
+            raise RuntimeError(f"the (data, model) group's rank {self.rank} is not data-major")
+        self.tp_ctx = tp.plan(cfg, self.model_group, self.n_model, self.model_rank)
+        self.uses = {k: self._use(k) for k in self.shapes}
 
-    # -- shards ------------------------------------------------------------
+    def _use(self, name: str) -> Use:
+        md = self.model_dims[name] if self.n_model > 1 else None
+        index = tp.compute_index(name, self.shapes[name], self.cfg, self.tp_ctx)
+        if index is None:
+            return Use(gather_model=md is not None, grad="own" if md is not None else "local")
+        dim, idx = index
+        block = self.tp_ctx.block(self.shapes[name][dim])
+        if md == dim and torch.equal(idx, torch.arange(block.start, block.stop)):
+            return Use()
+        return Use(gather_model=md is not None, index=index, grad="sum")
+
+    # -- blocks ------------------------------------------------------------
+
+    def coords(self, holder: int) -> Dict[str, int]:
+        """The (data, model) coordinates of block holder ``holder``."""
+        return {"data": holder // self.n_model, "model": holder % self.n_model}
+
+    def holder(self, coords: Dict[str, int]) -> int:
+        """The block holder at (data, model) ``coords``."""
+        return coords["data"] * self.n_model + coords["model"]
+
+    def splits(self, name: str) -> List[Tuple[int, str, int]]:
+        """``(dim, axis, ranks)`` of each mesh axis that splits ``name``,
+        outer dim first."""
+        out = [(self.dims[name], "data", self.n_data), (self.model_dims[name], "model", self.n_model)]
+        return sorted((d, a, n) for d, a, n in out if d is not None and n > 1)
 
     def split(self, name: str) -> bool:
-        """Whether ``name`` is split across the data ranks."""
-        return self.dims[name] is not None and self.n > 1
+        """Whether ``name`` is split across the block holders."""
+        return bool(self.splits(name))
 
     def local_shape(self, name: str) -> Tuple[int, ...]:
         shape = list(self.shapes[name])
-        if self.split(name):
-            shape[self.dims[name]] //= self.n
+        for d, _a, n in self.splits(name):
+            shape[d] //= n
         return tuple(shape)
 
     def shard(self, name: str, full: torch.Tensor, rank: Optional[int] = None) -> torch.Tensor:
-        """Rank ``rank``'s (default this rank's) shard of a whole tensor, a
-        fresh contiguous tensor."""
-        if not self.split(name):
-            return full.contiguous()
-        k = self.dims[name]
-        c = self.shapes[name][k] // self.n
-        r = self.rank if rank is None else rank
-        return full.narrow(k, r * c, c).clone(memory_format=torch.contiguous_format)
+        """Holder ``rank``'s (default this rank's) block of a whole tensor,
+        a fresh contiguous tensor."""
+        at = self.coords(self.rank if rank is None else rank)
+        for d, a, n in self.splits(name):
+            c = self.shapes[name][d] // n
+            full = full.narrow(d, at[a] * c, c)
+        return full.clone(memory_format=torch.contiguous_format)
+
+    def _all_gather(self, local, dim, group, n):
+        parts = [torch.empty_like(local) for _ in range(n)]
+        dist.all_gather(parts, local.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
 
     def gather(self, name: str, local: torch.Tensor) -> torch.Tensor:
-        """The whole tensor from every data rank's shard (all-gather)."""
-        if not self.split(name):
-            return local
-        parts = [torch.empty_like(local) for _ in range(self.n)]
-        dist.all_gather(parts, local.contiguous(), group=self.group)
-        return torch.cat(parts, dim=self.dims[name])
+        """The tensor this rank's compute reads ``name`` from: its block
+        all-gathered over "data", and over "model" when its use says so."""
+        d, md = self.dims[name], self.model_dims[name]
+        if d is not None and self.n_data > 1:
+            local = self._all_gather(local, d, self.data_group, self.n_data)
+        if self.uses[name].gather_model:
+            local = self._all_gather(local, md, self.model_group, self.n_model)
+        return local
+
+    def select(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The part of a gathered tensor that the compute reads."""
+        index = self.uses[name].index
+        if index is None:
+            return t
+        dim, idx = index
+        return t.index_select(dim, idx.to(t.device))
+
+    def compute(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        return self.select(name, self.gather(name, local))
+
+    def model_grad(self, name: str, g: torch.Tensor) -> torch.Tensor:
+        """The gradient of :meth:`gather`'s tensor cut (and summed) to this
+        rank's block over "model" (still whole over "data")."""
+        use, md = self.uses[name], self.model_dims[name]
+        if use.grad == "local":
+            return g
+        if use.grad == "own":
+            c = self.shapes[name][md] // self.n_model
+            return g.narrow(md, self.model_rank * c, c)
+        if md is None:
+            g = g.contiguous()
+            dist.all_reduce(g, group=self.model_group)
+            return g
+        front = g.movedim(md, 0).contiguous()
+        out = front.new_empty((front.shape[0] // self.n_model,) + tuple(front.shape[1:]))
+        dist.reduce_scatter_tensor(out, front, group=self.model_group)
+        return out.movedim(0, md)
+
+    def _data_shard(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        d = self.dims[name]
+        if d is None or self.n_data == 1:
+            return t.contiguous()
+        c = self.shapes[name][d] // self.n_data
+        return t.narrow(d, self.data_rank * c, c).clone(memory_format=torch.contiguous_format)
 
     def reduce(self, name: str, full: torch.Tensor, split: BatchSplit) -> torch.Tensor:
-        """This rank's shard of the mean over the batch's ranks of a whole
-        gradient (each rank's of its own mean loss).
+        """This rank's block of the mean over the batch's ranks of a
+        gradient whole over "data" (each rank's of its own mean loss; over
+        "model" already this rank's block, :meth:`model_grad`).
 
         A parameter split over "data" is reduce-scattered there, its data
         dim moved to the front so that each rank's shard is one contiguous
@@ -199,36 +323,57 @@ class MeshLayout:
         a whole one is all-reduced.  The sum is divided by the batch's
         ranks after."""
         if split.size == 1:
-            return self.shard(name, full)
-        if not self.split(name) or "data" not in split.axes:
+            return self._data_shard(name, full)
+        if self.dims[name] is None or self.n_data == 1 or "data" not in split.axes:
             full = full.contiguous()
             dist.all_reduce(full, group=split.group)
-            return self.shard(name, full.div_(split.size))
+            return self._data_shard(name, full.div_(split.size))
         k = self.dims[name]
         front = full.movedim(k, 0).contiguous()
         del full
-        out = front.new_empty((front.shape[0] // self.n,) + tuple(front.shape[1:]))
-        dist.reduce_scatter_tensor(out, front, group=self.group)
+        out = front.new_empty((front.shape[0] // self.n_data,) + tuple(front.shape[1:]))
+        dist.reduce_scatter_tensor(out, front, group=self.data_group)
         del front
         others = tuple(a for a in split.axes if a != "data")
         if others:
             dist.all_reduce(out, group=axes_group(self.mesh, others)[0])
         return out.div_(split.size).movedim(0, k).contiguous()
 
+    def counted(self, name: str) -> bool:
+        """Whether this rank's block of ``name`` is the one a sum over the
+        holders counts (a block held by several ranks counts once)."""
+        at = self.coords(self.rank)
+        axes = {a for _d, a, _n in self.splits(name)}
+        return all(at[a] == 0 for a in ("data", "model") if a not in axes)
+
     def gather_to_rank0(self, name: str, local: torch.Tensor) -> Optional[torch.Tensor]:
-        """The whole tensor on rank 0's host (``None`` elsewhere), one shard
-        in flight at a time: each data rank broadcasts its shard in turn
-        (``dist_fft.gather_to_host``'s pattern) and rank 0 copies it out."""
-        if not self.split(name):
+        """The whole tensor on rank 0's host (``None`` elsewhere), one block
+        in flight at a time: each distinct block's first holder broadcasts
+        it in turn (``dist_fft.gather_to_host``'s pattern) and rank 0 copies
+        it out."""
+        levels = self.splits(name)
+        if not levels:
             return local.detach().cpu() if self.rank == 0 else None
-        parts = []
-        for r in range(self.n):
-            buf = local.contiguous() if r == self.rank else torch.empty_like(local)
-            dist.broadcast(buf, src=dist.get_global_rank(self.group, r), group=self.group)
+        blocks = {}
+        for h in range(self.n):
+            at = self.coords(h)
+            if any(at[a] for a in ("data", "model") if a not in {a for _d, a, _n in levels}):
+                continue
+            buf = local.contiguous() if h == self.rank else torch.empty_like(local)
+            dist.broadcast(buf, src=dist.get_global_rank(self.group, h), group=self.group)
             if self.rank == 0:
-                parts.append(buf.cpu())
+                blocks[tuple(at[a] for _d, a, _n in levels)] = buf.cpu()
             del buf
-        return torch.cat(parts, dim=self.dims[name]) if self.rank == 0 else None
+        if self.rank != 0:
+            return None
+
+        def join(level, key):
+            if level == len(levels):
+                return blocks[key]
+            d, _a, n = levels[level]
+            return torch.cat([join(level + 1, key + (i,)) for i in range(n)], dim=d)
+
+        return join(0, ())
 
     def state_bytes(self, tree) -> int:
         """Bytes of the tensors of ``tree`` (a dict, nested dicts)."""
@@ -237,7 +382,7 @@ class MeshLayout:
         return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
 
     def share_bytes(self, moments: bool = True) -> int:
-        """The rules' share of one rank: its parameter shards, and with
+        """The rules' share of one rank: its parameter blocks, and with
         ``moments`` AdamW's two float32 moments of them (and its step)."""
         total = 0
         for k in self.shapes:
@@ -431,7 +576,8 @@ class MeshTrainStep:
         return params, self.optimizer.init(params)
 
     def _run(self, seg: Segment, full: Dict[str, torch.Tensor], inputs, batch):
-        return functional_call(self._runner, {f"lm.{k}": v for k, v in full.items()}, (seg.fn, inputs, batch))
+        with tp.context(self.layout.tp_ctx):
+            return functional_call(self._runner, {f"lm.{k}": v for k, v in full.items()}, (seg.fn, inputs, batch))
 
     def loss_and_grads(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], split: BatchSplit):
         """This rank's loss (of its rows) and its gradient shards."""
@@ -442,7 +588,7 @@ class MeshTrainStep:
             for seg in self.segments:
                 ins = [acts[r] for r in seg.reads]
                 saved.append(ins)
-                full = {n: L.gather(n, params[n]) for n in seg.params}
+                full = {n: L.compute(n, params[n]) for n in seg.params}
                 outs = self._run(seg, full, ins, batch)
                 del full
                 acts.update(zip(seg.writes, outs))
@@ -461,7 +607,7 @@ class MeshTrainStep:
             full = {n: L.gather(n, params[n]).detach().requires_grad_() for n in seg.params}
             ins = [t.detach().requires_grad_(t.is_floating_point()) for t in ins]
             with torch.enable_grad():
-                outs = self._run(seg, full, ins, batch)
+                outs = self._run(seg, {n: L.select(n, t) for n, t in full.items()}, ins, batch)
             diff = [t for t in ins if t.requires_grad] + list(full.values())
             got = [None] * len(diff)
             if wanted:
@@ -481,22 +627,22 @@ class MeshTrainStep:
                 full_grads[n] = g if n not in full_grads else full_grads[n] + g
                 remaining[n] -= 1
                 if remaining[n] == 0:
-                    shards[n] = L.reduce(n, full_grads.pop(n), split)
+                    shards[n] = L.reduce(n, L.model_grad(n, full_grads.pop(n)), split)
             del full, ins, got
         return loss, {k: shards[k] for k in params}
 
     def norm_terms(self, names: Sequence[str]):
-        """AdamW's per-leaf squared norms over the mesh: a split leaf's
-        partial sums added across the data ranks, a whole one's taken once."""
+        """AdamW's per-leaf squared norms over the mesh: each leaf's blocks'
+        partial sums added across the (data, model) ranks, every element
+        once (a block several ranks hold taken from one of them)."""
         L = self.layout
         if L.n == 1:
             return None
 
         def reduce(terms):
             t = torch.stack(terms)
-            if L.rank != 0:
-                split = torch.tensor([L.split(n) for n in names], device=t.device)
-                t = torch.where(split, t, torch.zeros_like(t))
+            counted = torch.tensor([L.counted(n) for n in names], device=t.device)
+            t = torch.where(counted, t, torch.zeros_like(t))
             dist.all_reduce(t, group=L.group)
             return list(t.unbind())
 
@@ -557,17 +703,21 @@ def swapped(module: nn.Module, tensors: Dict[str, torch.Tensor]):
 class MeshServe:
     """Prefill (``kind="prefill"``: ``step(params, batch, cache)``) and
     decode (``kind="decode"``: ``step(params, tokens, cache)``) on this
-    rank's shards, each returning ``(logits, cache)`` for this rank's rows.
+    rank's shards, each returning ``(logits, cache)`` for this rank's rows
+    and, when the vocab splits over "model", its vocab block of the logits
+    (the reference's ``_logits_spec``).
 
     The cache is this rank's (``cache_pspecs``: its batch dim split over
-    the data ranks when divisible, else whole); the step takes the rows of
-    the global batch that go with it.  Top-level parameters are gathered for
-    the call, each layer's (group's) around its own call by forward hooks,
-    and dropped after.  The bundle's own ``prefill``/``decode`` run."""
+    the data ranks when divisible, else whole; kv heads split over "model"
+    when they divide, else ``head_dim``; the SSM ``state`` on heads and
+    ``conv`` on ``conv_dim``): :meth:`init_cache` makes one.  The step takes
+    the rows of the global batch that go with it.  Top-level parameters are
+    gathered for the call, each layer's (group's) around its own call by
+    forward hooks, and dropped after, each as the rank's compute reads it
+    (:attr:`MeshLayout.uses`).  The bundle's own ``prefill``/``decode`` run
+    under the mesh's tensor-parallel context."""
 
     def __init__(self, layout: MeshLayout, kind: str):
-        from repro_torch.models.model import build_model
-
         if kind not in ("prefill", "decode"):
             raise ValueError(kind)
         self.layout, self.kind = layout, kind
@@ -585,6 +735,24 @@ class MeshServe:
                 unit_names.update(names)
         self.top = [n for n in layout.shapes if n not in unit_names]
 
+    def init_cache(self, rows: int, max_len: int):
+        """This rank's zero cache for a global batch of ``rows`` rows
+        (``cache_pspecs`` of the global one: each split dim cut)."""
+        L = self.layout
+        like = build_model(L.cfg, device="meta").init_cache(rows, max_len)
+        specs = cache_pspecs(like, L.mesh)
+
+        def local(t, spec):
+            if not isinstance(t, torch.Tensor):
+                return t
+            shape = list(t.shape)
+            for d, entry in enumerate(spec):
+                for a in _names(entry):
+                    shape[d] //= L.sizes[a]
+            return torch.zeros(shape, dtype=t.dtype, device=L.device)
+
+        return _zip_tree(like, specs, local)
+
     def __call__(self, params, inputs, cache):
         L = self.layout
         rows_global = int(torch.as_tensor(inputs["tokens"] if isinstance(inputs, dict) else inputs).shape[0])
@@ -598,7 +766,7 @@ class MeshServe:
 
         def pre(prefix, names):
             def hook(module, args, kwargs=None):
-                ctx = swapped(module, {n[len(prefix):]: L.gather(n, params[n]) for n in names})
+                ctx = swapped(module, {n[len(prefix):]: L.compute(n, params[n]) for n in names})
                 ctx.__enter__()
                 module._mesh_swap = ctx
             return hook
@@ -611,8 +779,8 @@ class MeshServe:
             handles.append(block.register_forward_pre_hook(pre(prefix, names)))
             handles.append(block.register_forward_hook(post))
         try:
-            with torch.no_grad(), split.routing(), \
-                    swapped(L.skeleton, {n: L.gather(n, params[n]) for n in self.top}):
+            with torch.no_grad(), split.routing(), tp.context(L.tp_ctx), \
+                    swapped(L.skeleton, {n: L.compute(n, params[n]) for n in self.top}):
                 if self.kind == "prefill":
                     return self.bundle.prefill(L.skeleton, local, cache)
                 return self.bundle.decode(L.skeleton, local["tokens"], cache)
@@ -633,6 +801,15 @@ def _cache_rows(cache) -> int:
         if t.ndim >= 4:
             return int(t.shape[-4])
     raise ValueError("a cache without a batch dim")
+
+
+def _zip_tree(tree, specs, fn):
+    """``fn(leaf, spec)`` over a cache tree and its spec tree."""
+    if isinstance(tree, dict):
+        return {k: _zip_tree(v, specs[k], fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_zip_tree(v, s, fn) for v, s in zip(tree, specs))
+    return fn(tree, specs)
 
 
 def _named_leaves(node, name=None):

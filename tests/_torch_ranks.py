@@ -14,6 +14,7 @@ other, against a single-process computation and against the reference.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import multiprocessing
 import os
@@ -477,7 +478,9 @@ def _state_np(state):
 
 
 def _model_axis(world):
-    """A "model" axis of 2: what each mesh entry point raises."""
+    """A "model" axis of 2: what each mesh entry point builds."""
+    import tempfile
+
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import steps
     from repro_torch.runtime import Trainer, TrainerConfig
@@ -485,19 +488,159 @@ def _model_axis(world):
 
     mesh = _data_mesh(world, model=2)
     cfg = get_smoke_config("qwen2-0.5b")
+    layout = fsdp.MeshLayout(cfg, mesh)
+    step = steps.make_step(cfg, "train_4k", mesh)[0]
+    with tempfile.TemporaryDirectory() as d:
+        t = Trainer(cfg, TrainerConfig(ckpt_dir=d), mesh=mesh, device="cpu")
+        held = t.layout.state_bytes(t.params) + t.layout.state_bytes(t.opt_state)
+    return {"layout": (layout.n_data, layout.n_model), "model_rank": layout.model_rank,
+            "make_step": type(step).__name__, "trainer": {"state_bytes": held, "share_bytes": t.layout.share_bytes()}}
+
+
+def body_tp(rank, world, inputs):
+    """Tensor and expert parallelism (tests/test_torch_tp.py): on each mesh
+    of ``inputs["meshes"][world]`` (a (data, model) shape and the cases it
+    runs), two train steps of every case (the gradient blocks of the first
+    out of the reduction, its global norm as AdamW reads it, the MoE
+    routing counts of its forward, the parameters after the second),
+    prefill and decode through ``MeshServe``, and
+    ``compress_sharded_gradients`` of given gradients.  Collectives refuse
+    strided tensors."""
+    import torch
+
+    _contiguous_collectives()
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.launch import steps
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.grad_compress import compress_sharded_gradients
+    from repro_torch.sharding import fsdp, tp
+
+    import logging
+
+    cases = {c[0]: c for c in inputs["cases"]}
     out = {}
-    for label, call in (("layout", lambda: fsdp.MeshLayout(cfg, mesh)),
-                        ("make_step", lambda: steps.make_step(cfg, "train_4k", mesh)),
-                        ("trainer", lambda: Trainer(cfg, TrainerConfig(), mesh=mesh, device="cpu"))):
-        try:
-            call()
-            out[label] = None
-        except NotImplementedError as e:
-            out[label] = str(e)
+    route = moe_mod.route
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda record: logged.append(record.getMessage())
+    logging.getLogger(tp.__name__).addHandler(handler)
+    for shape, labels in inputs["meshes"].get(world, ()):
+        mesh = _data_mesh(world, model=shape[1])
+        for label in labels:
+            _, arch, overrides, state, batches, serve = cases[label]
+            cfg = get_smoke_config(arch, **overrides)
+            step = steps.make_step(cfg, "train_4k", mesh, optimizer=AdamW(warmup_steps=2))[0]
+            L = step.layout
+            params = {k: L.shard(k, torch.from_numpy(v)) for k, v in state.items()}
+            opt = step.optimizer.init(params)
+            grads = _watch_grads(step)
+            norms, routed = [], []
+            norm_terms = step.norm_terms
+
+            def watched_norm(names, norm_terms=norm_terms):
+                reduce = norm_terms(names)
+
+                def counted(terms):
+                    terms = reduce(terms) if reduce is not None else terms
+                    norms.append(float(torch.sqrt(sum(terms))))
+                    return terms
+                return counted
+
+            def watched_route(*a, **kw):
+                r = route(*a, **kw)
+                if not torch.is_grad_enabled():  # the forward, not the backward's recompute
+                    routed.append((int(r.keep.sum()), int(r.keep.numel())))
+                return r
+
+            step.norm_terms = watched_norm
+            moe_mod.route = watched_route
+            losses = []
+            try:
+                for i, batch in enumerate(batches):
+                    params, opt, loss = step(params, opt, batch)
+                    losses.append(float(loss))
+                    if i == 0:
+                        first = _host(L, grads)
+                        routed_first = list(routed)
+            finally:
+                moe_mod.route = route
+            rec = {"losses": losses, "grads": first, "norm": norms[0], "routed": routed_first,
+                   "data_rank": L.data_rank, "model_rank": L.model_rank, "params": _host(L, params),
+                   "state_bytes": L.state_bytes(params) + L.state_bytes(opt), "share_bytes": L.share_bytes(),
+                   "ctx": {f: getattr(L.tp_ctx, f) for f in ("size", "heads", "mlp", "experts", "vocab")},
+                   "uses": {k: (u.gather_model, u.index is not None, u.grad) for k, u in L.uses.items()}}
+
+            pre = steps.make_step(cfg, "prefill_32k", mesh)[0]
+            dec = steps.make_step(cfg, "decode_32k", mesh)[0]
+            toks, stubs, prompt, max_len = serve
+            split = L.batch_split(toks.shape[0])
+            cache = pre.init_cache(toks.shape[0], max_len)
+            params = {k: L.shard(k, torch.from_numpy(v)) for k, v in state.items()}  # the initial ones
+            logits, cache = pre(params, {"tokens": toks[:, :prompt], **stubs}, cache)
+            seq = [logits.numpy()]
+            for t in range(prompt, toks.shape[1]):
+                logits, cache = dec(params, toks[:, t : t + 1], cache)
+                seq.append(logits.numpy())
+            rec["serve"] = {"rows": split.rows(toks.shape[0]), "logits": seq,
+                            "cache_bytes": L.state_bytes(cache)}
+            out[(shape, label)] = rec
+
+        for label, arch, grads_np, kw in inputs.get("compress", ()):
+            if label not in labels:
+                continue
+            cfg = get_smoke_config(arch)
+            L = fsdp.MeshLayout(cfg, mesh)
+            blocks = {k: L.shard(k, torch.from_numpy(v)) for k, v in grads_np.items()}
+            got = compress_sharded_gradients(blocks, L, fsdp.reference_leaves(cfg, list(L.shapes)),
+                                             engine=CorrectionEngine(device="cpu", fft_impl="pallas"), **kw)
+            out[(shape, "compress", label)] = _host(L, got)
+        ck = inputs.get("checkpoint")
+        if ck is not None and shape in ck["meshes"]:
+            out[(shape, "checkpoint")] = _tp_trainer(rank, world, mesh, ck, shape)
+    out["replicated_notes"] = logged
     return out
 
 
-BODIES = {"transforms": body_transforms, "sharded": body_sharded, "mesh": body_mesh}
+def _tp_trainer(rank, world, mesh, ck, shape):
+    """A Trainer over a mesh with a "model" axis: ``ck["steps"]`` steps with
+    a checkpoint each, then a new Trainer on the directory restores the
+    last one (data rank 0 of model rank 0 decodes and scatters each leaf's
+    blocks) and steps once more."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.codec import CheckpointCodec
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = get_smoke_config(ck["arch"])
+    directory = os.path.join(ck["dir"], f"{shape[0]}x{shape[1]}")
+    run = TrainerConfig(ckpt_dir=directory, seq_len=24, global_batch=4, ckpt_every=1, ckpt_async=False,
+                        log_every=1)
+    t = Trainer(cfg, run, mesh=mesh, device="cpu")
+    t.train(ck["steps"])
+    saved = t.state()
+    dist.barrier()
+    decoded, decode = [], CheckpointCodec.decode
+    CheckpointCodec.decode = lambda self, data: decoded.append(len(data)) or decode(self, data)
+    try:
+        again = Trainer(cfg, run, mesh=mesh, device="cpu")
+    finally:
+        CheckpointCodec.decode = decode
+    start, restored = again.start_step, again.state()
+    losses = again.train(1)["metrics"]
+    return {"start": start, "decoded_leaves": len(decoded),
+            "saved": None if saved is None else _state_np(saved),
+            "restored": None if restored is None else _state_np(restored),
+            "loss": losses[-1]["loss"], "held": again.layout.state_bytes(again.params)
+            + again.layout.state_bytes(again.opt_state), "share": again.layout.share_bytes()}
+
+
+BODIES = {"transforms": body_transforms, "sharded": body_sharded, "mesh": body_mesh, "tp": body_tp}
 
 
 # ---------------------------------------------------------------------------

@@ -168,7 +168,17 @@ def test_xla_flash_trip_counts_match_causal_skip():
 
 
 def test_mesh_axes_raise(params):
-    x = torch.zeros((1, 4, D))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_attn.attention_apply(params[1], x, n_heads=H, n_kv_heads=HKV, head_dim=HD,
-                               mesh_axes=(("model", 2),))
+    """``mesh_axes`` are layout hints: full parameters under a "model" axis
+    of 2 (no tensor-parallel context) give the hint-free result bitwise,
+    with a cache and without."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 12, D)).astype(np.float32))
+    kw = dict(n_heads=H, n_kv_heads=HKV, head_dim=HD)
+    for impl in IMPLS:
+        plain, _ = t_attn.attention_apply(params[1], x, impl=impl, **kw)
+        hinted, _ = t_attn.attention_apply(params[1], x, impl=impl, mesh_axes=(("data", 1), ("model", 2)), **kw)
+        assert torch.equal(plain, hinted), impl
+    caches = [t_attn.init_kv_cache(2, HKV, 16, HD, torch.float32) for _ in range(2)]
+    plain, _ = t_attn.attention_apply(params[1], x, cache=caches[0], from_zero=True, **kw)
+    hinted, _ = t_attn.attention_apply(params[1], x, cache=caches[1], from_zero=True,
+                                       mesh_axes=(("model", 2),), **kw)
+    assert torch.equal(plain, hinted) and torch.equal(caches[0]["k"], caches[1]["k"])

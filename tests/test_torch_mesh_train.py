@@ -36,7 +36,8 @@ checkpoint once it is committed.  The tests read what the ranks returned.
 - A checkpoint saved at world size 2 (after an injected failure and a
   restart) restores bitwise at 1 and 4 ranks, which then train on; only
   data rank 0 decodes it, one leaf at a time.
-- A "model" axis of 2 raises ``NotImplementedError`` naming item 5e.
+- A "model" axis of 2 builds a layout, a step and a Trainer (its steps are
+  ``tests/test_torch_tp.py``'s).
 """
 
 import dataclasses
@@ -353,16 +354,20 @@ def test_only_data_rank_zero_reads_a_checkpoint(mesh, world):
 
 
 def test_a_model_axis_of_two_raises(mesh):
+    """A (1, 2) mesh: the layout, ``make_step`` and a Trainer build, each
+    rank holding its (data, model) blocks, every block its share."""
     got = _ranks(mesh["ranks"], 2)
     for r in got:
-        for what, msg in r["model_axis"].items():
-            assert msg is not None and "item 5e" in msg and "model" in msg, (what, msg)
+        m = r["model_axis"]
+        assert m["layout"] == (1, 2) and m["make_step"] == "MeshTrainStep", m
+        assert m["trainer"]["state_bytes"] == m["trainer"]["share_bytes"], m
+    assert [r["model_axis"]["model_rank"] for r in got] == [0, 1]
 
 
 def test_mesh_axes_with_a_model_axis_of_one_are_accepted():
-    """The models take the mesh's axes as layout hints while "model" is 1."""
-    from repro_torch.models import attention, moe
-
+    """The models take the mesh's axes as layout hints, of a "model" axis of
+    1 or 2: without a tensor-parallel context the loss is the hint-free one
+    bitwise."""
     rcfg, cfg = lm.configs("granite-moe-3b-a800m")
     bundle = lm.build_model(cfg, device="cpu")
     model = bundle.load({k: torch.from_numpy(np.asarray(v)) for k, v in
@@ -372,9 +377,6 @@ def test_mesh_axes_with_a_model_axis_of_one_are_accepted():
         plain = bundle.loss(model, batch)
         hinted_cfg = dataclasses.replace(cfg, mesh_axes=(("data", 4), ("model", 1)))
         hinted = lm.build_model(hinted_cfg, device="cpu").loss(model, batch)
-    assert torch.equal(plain, hinted)
-    with pytest.raises(NotImplementedError, match="item 5e"):
-        moe.check_model_axis((("data", 2), ("model", 2)), "expert parallelism")
-    with pytest.raises(NotImplementedError, match="item 5e"):
-        attention.attention_apply({}, torch.zeros(1, 2, 4), n_heads=1, n_kv_heads=1, head_dim=4,
-                                  mesh_axes=(("model", 4),))
+        hinted_tp = lm.build_model(dataclasses.replace(cfg, mesh_axes=(("data", 2), ("model", 2))),
+                                   device="cpu").loss(model, batch)
+    assert torch.equal(plain, hinted) and torch.equal(plain, hinted_tp)

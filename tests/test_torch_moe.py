@@ -148,9 +148,15 @@ def test_gradients_are_finite_and_reach_the_router():
 
 
 def test_mesh_axes_raise():
-    _, tp = _params()
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        t_moe.moe_apply(tp, torch.zeros(1, 2, D), top_k=1, mesh_axes=(("model", 2),))
+    """``mesh_axes`` are layout hints: full parameters under a "model" axis
+    of 2 (no tensor-parallel context) give the hint-free result bitwise,
+    dropping pairs or not, with a shared expert."""
+    _, tp = _params(shared=True, e_pad=16)
+    x = torch.from_numpy(_x((2, 16)))
+    for cf in (0.5, 4.0):
+        plain = t_moe.moe_apply(tp, x, top_k=2, capacity_factor=cf)
+        hinted = t_moe.moe_apply(tp, x, top_k=2, capacity_factor=cf, mesh_axes=(("data", 2), ("model", 2)))
+        assert torch.equal(plain, hinted), cf
 
 
 def test_module_init_follows_the_references_layout():

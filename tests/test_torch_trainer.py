@@ -203,7 +203,7 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(tmp_path):
 
 
 def test_trainer_takes_no_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(NotImplementedError, match="DeviceMesh"):
         Trainer(get_smoke_config(ARCH), TrainerConfig(**_run(tmp_path)), mesh=object(), device="cpu")
 
 
@@ -353,7 +353,7 @@ def test_prefill_and_serve_steps_are_the_bundles():
     assert torch.equal(logits, want)
     out, cache = steps.make_serve_step(bundle)(params, toks[:, -1:], cache)
     assert out.shape == (2, 1, cfg.vocab_padded) and cache["pos"] == 9
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(NotImplementedError, match="DeviceMesh"):
         steps.make_step(cfg, "train", mesh=None)
 
 

@@ -119,6 +119,27 @@ Phases, one JSON line each (or more):
               the one-rank (1, 1) mesh: logits bitwise the one-device
               bundle's, flash launched once a layer in the prefill (path
               "serve_mesh") and its first call held against the twin
+  pipeline    GPipe at world size 1: pipeline_apply over the "pipe"
+              axis of a one-rank (1, 1) ("pipe", "data") mesh, qwen2-0.5b's
+              24 DenseBlocks one stage (full width, bf16, attention_impl
+              "pallas", random weights), 4 microbatches of 1 x 2048 token
+              embeddings: 96 flash launches (path "pipeline"), the first
+              call held against the twin, outputs bitwise the sequential
+              stack run microbatch by microbatch (or within 2e-2 above the
+              xla_flash/pallas floor of the batched forward)
+  examples    examples/serve_batched_torch.py and
+              examples/compress_checkpoint_torch.py (the reference examples'
+              twins, smoke qwen2-0.5b and qwen2-7b) with --fft-impl pallas
+              (and the serve example's --attention-impl pallas), run in this
+              process: the served counts, every served token equal to an
+              xla_flash/xla run's, every FFCz leaf restored within its
+              stored E, flash and kernels 3p/4p launched; the first call at
+              each shape of the flash kernel (float32, head dim 16) held
+              against its twin and of kernels 3p/4p bitwise
+  dryrun      launch/dryrun.run_cell on qwen2-0.5b x train_4k x 16x16 (256
+              fake ranks, rank 0's step on meta tensors under the cost
+              counter; a process of its own, run while phase examples
+              does): the record ok, a nonempty count, no kernel launch
   grad_pallas one step's gradients (315 M values) through compress_gradients
               with the pallas engine (kernels 3 and 4 per pencil) and the
               xla engine, every pencil rechecked in float64 on the host
@@ -206,6 +227,11 @@ builds the kernels and runs phase sharded alone, with its gates.
 
 builds the kernels and runs phases train_mesh and serve_mesh alone, with
 their gates.
+
+    python3 chip_smoke.py --pipeline
+
+builds the kernels and runs phases pipeline, examples and dryrun alone,
+with their gates.
 """
 
 from __future__ import annotations
@@ -453,22 +479,11 @@ def phase_kernels(dev):
     return records
 
 
-def launch_counters():
-    """Every kernel wrapper's ``launches`` dict."""
-    from repro_torch.kernels.block_transform import ops as bt_ops
-    from repro_torch.kernels.fcube import ops as fcube_ops
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.quantize import ops as quantize_ops
-    from repro_torch.kernels.rfft import ops as rfft_ops
-    from repro_torch.kernels.scube import ops as scube_ops
-
-    return (scube_ops.launches, fcube_ops.launches, rfft_ops.launches, flash_ops.launches,
-            quantize_ops.launches, bt_ops.launches)
-
-
 def without_counting(fn):
     """Run ``fn``, then put every launch count back as it was before: its
     launches (a replay against the twins) are not the path's."""
+    from repro_torch.kernels import launch_counters
+
     counters = launch_counters()
     saved = [dict(c) for c in counters]
     try:
@@ -480,6 +495,8 @@ def without_counting(fn):
 
 def reset_launches():
     """Set every kernel's launch count to 0; returns a reader of the counts."""
+    from repro_torch.kernels import launch_counters
+
     all_counters = launch_counters()
     for counters in all_counters:
         for k in counters:
@@ -1839,6 +1856,10 @@ def phase_train_family(dev, records, arch, cfg=None, tokens=(4, 2048), check_tok
     phase = dict(arch=cfg.name, family=cfg.family, layers=cfg.n_layers)
     check = grad_check(dev, cfg, min(GRAD_CHECK_LAYERS.get(arch, 2), cfg.n_layers), check_tokens)
     emit("train_family", **phase, part="grad_check", **check)
+    # the check's float32 blocks go back to the card before zamba2-7b's 75 GB
+    # training peak: left cached, they once failed its step (19.6 GB of
+    # reserved, unallocated blocks)
+    torch.cuda.empty_cache()
 
     work = WORK_DIR / "train_family"
     shutil.rmtree(work, ignore_errors=True)
@@ -3292,6 +3313,346 @@ def phase_serve_mesh(dev, records, cfg=None, rows=4, prompt=2048, new=2):
          launches_by_path={"flash_attention": records["flash_attention"]["launches_by_path"]["serve_mesh"]})
 
 
+def phase_pipeline(dev, records, cfg=None, micro=4, rows=1, seq=2048):
+    """GPipe at world size 1: ``pipeline_apply`` over the "pipe" axis of
+    ``make_mesh((1, 1), ("pipe", "data"))`` on a one-rank process group, the
+    code the CPU tests run on 4 gloo ranks at (4, 1) and (2, 2) and
+    ``examples/pipeline_torch.py`` on 2 and 4 cards.  ``cfg``: qwen2-0.5b at
+    full width and depth (bf16, ``attention_impl="pallas"``, random weights
+    from seed 0), its 24 ``DenseBlock``s one stage (S = 1), ``micro``
+    microbatches of ``rows`` x ``seq`` token embeddings.
+
+    Gate: the flash kernel launched once a layer a microbatch on path
+    "pipeline" and its first call held against the twin (bf16: one ulp at
+    each element's magnitude, 3e-5 floor); the outputs bitwise the
+    sequential stack run microbatch by microbatch, or within the LM gate's
+    bf16 bar (2e-2 above the floor between the xla_flash and pallas
+    forwards) of the whole batch's sequential forward.  Reported: the
+    pipelined and sequential seconds, the bubble fraction (0 at S = 1)."""
+    import dataclasses
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.pipeline import block_stage, bubble_fraction, pipeline_apply
+
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config("qwen2-0.5b", attention_impl="pallas")
+    model = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (micro * rows, seq), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(11))
+    layers = list(model.layers)
+
+    def sequential(c, x):
+        for layer in layers:
+            x = layer(x, c)[0]
+        return x
+
+    with torch.no_grad():
+        h0 = model.embed_inputs(tokens, cfg)
+        mbs = h0.reshape((micro, rows) + tuple(h0.shape[1:]))
+        per_micro = torch.stack([sequential(cfg, m) for m in mbs])
+        other = sequential(dataclasses.replace(cfg, attention_impl="xla_flash"), h0)
+        sync(dev)
+        t0 = time.perf_counter()
+        whole = sequential(cfg, h0)
+        sync(dev)
+        sequential_s = time.perf_counter() - t0
+    stage_fn, stage_params = block_stage(layers, cfg)
+
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{DIST_DIR / 'init'}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("pipe", "data"))
+        with torch.no_grad():
+            pipeline_apply(stage_fn, stage_params, mbs, mesh)  # warm-up: its launches are reset below
+        captured, undo = first_calls((flash_ops, ("flash_attention",)))
+        read = reset_launches()
+        try:
+            sync(dev)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = pipeline_apply(stage_fn, stage_params, mbs, mesh)
+            sync(dev)
+            pipelined_s = time.perf_counter() - t0
+        finally:
+            undo()
+        counts = read()
+        n_flash = counts["flash_attention"]
+        flash = records["flash_attention"]
+        flash["launches"] += n_flash
+        flash.setdefault("launches_by_path", {})["pipeline"] = n_flash
+
+        (name, shape), (ops, args, kw) = next(iter(captured.items()))
+
+        def replay():
+            read_one = reset_launches()
+            kernel = getattr(ops, name)(*args, **kw)
+            return kernel, read_one()["flash_attention"]
+
+        kernel, replay_launches = without_counting(replay)
+        ok, ulps, n_over, worst = bf16_within_one_ulp(kernel, attention_ref(*args, **kw))
+        flash.setdefault("shapes_held_on_paths", {}).setdefault("pipeline", []).append(list(shape))
+        bitwise = bool(torch.equal(out, per_micro))
+        diff = float((out.reshape(whole.shape).float() - whole.float()).abs().max())
+        floor = float((other.float() - whole.float()).abs().max())
+        bar = 2e-2 + floor
+        emit("pipeline", config=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype, world_size=1,
+             backend=dist.get_backend(), mesh=list(mesh.shape), mesh_axes=["pipe", "data"], stages=1,
+             microbatches=micro, microbatch_shape=list(mbs.shape[1:]), bubble_fraction=bubble_fraction(1, micro),
+             pipelined_seconds=pipelined_s, sequential_seconds=sequential_s,
+             bitwise_per_microbatch=bitwise, max_abs_diff_vs_batched=diff, floor=floor, bar=bar,
+             hidden_max_abs=float(whole.float().abs().max()), launches={k: v for k, v in counts.items() if v},
+             flash_held={"shape": list(shape), "launches": replay_launches, "within_one_ulp": ok,
+                         "max_ulps": ulps, "n_over_one_ulp": n_over, "largest_value_over_one_ulp": worst})
+        require(n_flash == cfg.n_layers * micro,
+                f"pipeline: {n_flash} flash_attention launches, want {cfg.n_layers * micro}")
+        require(replay_launches == 1, f"pipeline: the held call launched {replay_launches} kernels, want one")
+        require(ok, f"pipeline: flash_attention at {shape} is more than one ulp + 3e-5 from its twin")
+        require(bitwise or diff <= bar, f"pipeline: outputs {diff} from the sequential forward, bar {bar}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    del model, stage_params, out
+    emit("pipeline", part="summary", seconds=time.perf_counter() - t_phase,
+         launches_by_path={"flash_attention": records["flash_attention"]["launches_by_path"]["pipeline"]})
+
+
+DRYRUN_CELL = ("qwen2-0.5b", "train_4k", False)  # 16x16
+
+
+def start_dryrun():
+    """``launch/dryrun.run_cell`` of DRYRUN_CELL in a process of its own (it
+    makes the default process group a 256-rank fake one; meta tensors, no
+    card), started now and read by :func:`phase_dryrun`."""
+    import os
+
+    code = ("import json; from repro_torch.launch.dryrun import run_cell; "
+            f"print('RECORD ' + json.dumps(run_cell(*{DRYRUN_CELL!r})))")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def phase_dryrun(started):
+    """The dry run's cell (16x16 mesh: 256 fake ranks, rank 0's step on meta
+    tensors under the cost counter).  Gate: the record ``ok`` with positive
+    flops, bytes and collective bytes, no unknown trips, no kernel launches
+    (nothing runs on meta), and the arguments no larger than the rank's
+    parameter and moment shards plus its batch rows."""
+    proc, t0 = started
+    stdout, stderr = proc.communicate(timeout=900)
+    require(proc.returncode == 0, f"dryrun: run_cell exited {proc.returncode}: {stderr[-2000:]}")
+    rec = json.loads([l for l in stdout.splitlines() if l.startswith("RECORD ")][0][len("RECORD "):])
+    emit("dryrun", record=rec, wall_seconds=time.perf_counter() - t0)
+    require(rec.get("ok") is True, f"dryrun: the cell is not ok: {rec}")
+    require(rec["flops"] > 0 and rec["bytes_accessed"] > 0 and sum(rec["collective_bytes"].values()) > 0,
+            f"dryrun: an empty count: {rec}")
+    require(rec["unknown_trip_whiles"] == 0 and rec["kernels"] == {}, f"dryrun: unknown trips or kernels: {rec}")
+
+
+def run_example(script, argv):
+    """``python examples/<script> <argv>`` in this process (so the path's
+    kernel calls can be recorded here); its printed lines."""
+    import contextlib
+    import io
+    import runpy
+
+    saved, sys.argv = sys.argv, [str(ROOT / "examples" / script), *argv]
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(sys.argv[0], run_name="__main__")
+    finally:
+        sys.argv = saved
+    return out.getvalue()
+
+
+def served_tokens():
+    """Wrap ``ServingEngine.step`` so that every finished request's tokens
+    are kept, ``{(kv_compression, uid): tokens}``; returns them and a
+    function that puts ``step`` back."""
+    from repro_torch.serving.engine import ServingEngine
+
+    served, step = {}, ServingEngine.step
+
+    def call(self):
+        done = step(self)
+        for r in done:
+            served[(self.cfg.compression.kv_cache_compression, r["uid"])] = r["tokens"]
+        return done
+
+    ServingEngine.step = call
+
+    def undo():
+        ServingEngine.step = step
+
+    return served, undo
+
+
+def hold_flash_calls(path, record, captured):
+    """Replay each flash call :func:`first_calls` captured on the kernel and
+    hold it against ``attention_ref`` on the same inputs: float32 within
+    3e-5, bf16 within one ulp + 3e-5.  The replay's launches are not the
+    path's."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    checks = []
+    for (name, shape), (ops, args, kw) in captured.items():
+        def replay():
+            read = reset_launches()
+            with torch.no_grad():
+                got = getattr(ops, name)(*args, **kw)
+            return got, read()["flash_attention"]
+
+        got, launched = without_counting(replay)
+        with torch.no_grad():
+            want = attention_ref(*args, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        ok = err <= 3e-5 if got.dtype == torch.float32 else bf16_within_one_ulp(got, want)[0]
+        checks.append({"shape": list(shape), "dtype": str(got.dtype), "launches": launched, "max_abs_err": err,
+                       "within_bar": ok})
+        record.setdefault("shapes_held_on_paths", {}).setdefault(path, []).append(list(shape))
+        require(launched == 1, f"{path}: the held flash call at {shape} launched {launched} kernels, want one")
+        require(ok, f"{path}: flash_attention at {shape} is {err} from its twin")
+    emit(path, part="flash_at_path_shapes", checks=checks)
+    require(bool(checks), f"{path}: no flash call was captured")
+
+
+def example_launches(text):
+    """The ``... kernel launches: {...}`` dict an example prints last."""
+    import ast
+
+    return ast.literal_eval(text.rstrip().splitlines()[-1].split("kernel launches: ", 1)[1])
+
+
+def count_example(records, path, counts, printed, want):
+    """Add an example's launches (read around its run) to the kernel rows;
+    the example's own launch line must agree, and every kernel of ``want``
+    must have launched (on the card)."""
+    counts = {k: n for k, n in counts.items() if n}
+    require(counts == printed, f"{path}: the example printed launches {printed}, the counters read {counts}")
+    for k in want:
+        require(counts.get(k, 0) > 0, f"{path}: launched no {k}: {counts}")
+    for k, n in counts.items():
+        require(k in records, f"{path}: launched {k}, which no kernel row counts")
+        records[k]["launches"] += n
+        records[k].setdefault("launches_by_path", {})[path] = n
+    return counts
+
+
+def phase_examples(dev, records, requests=6, new_tokens=12):
+    """``examples/serve_batched_torch.py --attention-impl pallas --fft-impl
+    pallas`` and ``examples/compress_checkpoint_torch.py --fft-impl pallas``
+    (the reference examples' twins: smoke qwen2-0.5b and qwen2-7b, float32,
+    head dim 16), run in this process with the first call of the flash
+    kernel and of the pencil kernels at each shape recorded.
+
+    Gate: the serve lines give ``requests`` served requests with KV
+    compression off and on, each shown request ``new_tokens`` tokens, and
+    every served request's tokens equal those of the same requests served
+    on the reference's paths (``--attention-impl xla_flash --fft-impl xla``,
+    no kernel); the flash kernel (the prefills) and kernel 3p (the KV
+    compression, whose pencils meet their bounds after one forward
+    epilogue) launched; the checkpoint's FFCz leaves restored within the E
+    each header stores, kernels 3p/4p launched; every recorded flash call
+    within the bar of its twin (float32: 3e-5), every recorded pencil call
+    bitwise its twin."""
+    import re
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    cpu = [] if on_card else ["--device", "cpu"]
+    pencil_groups = path_wrappers(True) + path_wrappers(False)
+    path = "examples:serve_batched"
+
+    served, undo_served = served_tokens()
+    try:
+        captured, undo = first_calls((flash_ops, ("flash_attention",)), *pencil_groups)
+        read = reset_launches()
+        try:
+            serve = run_example("serve_batched_torch.py", ["--attention-impl", "pallas", "--fft-impl", "pallas", *cpu])
+        finally:
+            undo()
+        serve_counts = read()
+        with_kernels = dict(served)
+        served.clear()
+        t_plain = time.perf_counter()
+        without_counting(lambda: run_example("serve_batched_torch.py", cpu))
+        plain_s = time.perf_counter() - t_plain
+    finally:
+        undo_served()
+    flash_calls = {k: v for k, v in captured.items() if k[0] == "flash_attention"}
+    hold_flash_calls(path, records["flash_attention"], flash_calls)
+    hold_at_path_shapes(path, records, {k: v for k, v in captured.items() if k not in flash_calls})
+
+    served_lines = [(kv, int(n)) for kv, n in
+                    re.findall(r"^kv_compression=(True|False): served (\d+) requests", serve, re.M)]
+    shown = [len(t.split(",")) for t in re.findall(r"^  uid=\d+: \[([0-9, ]+)\]$", serve, re.M)]
+    differ = sorted(k for k in with_kernels if with_kernels[k] != served.get(k))
+    emit("examples", serve_batched=serve.splitlines(), requests_served=len(with_kernels),
+         requests_differing_from_xla=[list(k) for k in differ], xla_run_seconds=plain_s)
+    require(served_lines == [("False", requests), ("True", requests)], f"{path}: served {served_lines}")
+    require(shown and all(n == new_tokens for n in shown), f"{path}: token counts {shown}")
+    require(len(with_kernels) == 2 * requests and with_kernels.keys() == served.keys() and not differ,
+            f"{path}: the kernels' tokens differ from the xla_flash/xla run's at {differ}")
+    # the smoke KV cache's pencils meet their bounds after the first forward
+    # epilogue (3p), so the inverse half (4p) runs in the checkpoint codec
+    serve_counts = count_example(records, path, serve_counts, example_launches(serve),
+                                 ("flash_attention", "rfft_fwd_epilogue_rows") if on_card else ())
+
+    path = "examples:compress_checkpoint"
+    captured, undo = first_calls(*pencil_groups)
+    read = reset_launches()
+    try:
+        ckpt = run_example("compress_checkpoint_torch.py", ["--fft-impl", "pallas", *cpu])
+    finally:
+        undo()
+    ckpt_counts = read()
+    hold_at_path_shapes(path, records, captured)
+    within = re.search(r"every restore error within its stored E: (True|False) \(worst err/E ([0-9.]+)\)", ckpt)
+    emit("examples", compress_checkpoint=ckpt.splitlines())
+    require(within is not None and within.group(1) == "True", f"{path}: a checkpoint leaf restored beyond its E")
+    ckpt_counts = count_example(records, path, ckpt_counts, example_launches(ckpt),
+                                ("rfft_fwd_epilogue_rows", "unpack_sclip_rows") if on_card else ())
+    emit("examples", part="summary", seconds=time.perf_counter() - t_phase,
+         launches={"serve_batched": serve_counts, "compress_checkpoint": ckpt_counts})
+
+
+def pipeline_phases(dev, records):
+    """Phase pipeline, then phase examples with the dry run's cell in a
+    process of its own meanwhile (phase dryrun reads it after them).  The
+    pipeline's timing comes first, alone: its forward is host-bound."""
+    import torch
+
+    phase_pipeline(dev, records)
+    torch.cuda.empty_cache()
+    started = start_dryrun()
+    try:
+        phase_examples(dev, records)
+        phase_dryrun(started)
+    finally:
+        if started[0].poll() is None:
+            started[0].kill()
+            started[0].wait()
+
+
 def recheck(x, dec, blob):
     """Float64 margins of ``dec`` against the bounds ``blob`` STORES."""
     import numpy as np
@@ -3460,6 +3821,22 @@ def train_mesh_only() -> int:
     return 0
 
 
+def pipeline_only() -> int:
+    """Build the kernels and run phases pipeline, examples and dryrun alone
+    (their gates too)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("device", nvidia_smi=nvidia_smi_line())
+    emit("build", seconds=build.build_all())
+    records = {k: {"name": k, "launches": 0} for k in KERNEL_ROWS}
+    pipeline_phases("cuda", records)
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
@@ -3481,9 +3858,11 @@ def main() -> int:
         return sharded_only()
     if sys.argv[1:] == ["--train-mesh"]:
         return train_mesh_only()
+    if sys.argv[1:] == ["--pipeline"]:
+        return pipeline_only()
     if sys.argv[1:]:
         print("usage: chip_smoke.py [--compare-lm OTHER_CHECKOUT | --decode-sweep | --train-families | --sharded "
-              "| --train-mesh]", file=sys.stderr)
+              "| --train-mesh | --pipeline]", file=sys.stderr)
         return 2
 
     from repro_torch.compressors import get_compressor
@@ -3555,7 +3934,7 @@ def main() -> int:
     emit("lm", part="flash_build", sass=sass, ptxas=ptxas)
     require(sass["HGMMA"] > 0, "flash_attention: no HGMMA (wgmma) in the library's SASS")
     require(sass["UTMALDG"] + sass["UBLKCP"] > 0, "flash_attention: no TMA load in the library's SASS")
-    require(no_spills(ptxas, 6), f"flash_attention: ptxas reports spills or misses a kernel: {ptxas}")
+    require(no_spills(ptxas, 7), f"flash_attention: ptxas reports spills or misses a kernel: {ptxas}")
     records["flash_attention"] = phase_flash(dev)
     phase_flash_families(dev, records["flash_attention"])
     records.update(phase_pencil_kernels(dev))
@@ -3592,6 +3971,10 @@ def main() -> int:
     phase_train_mesh(dev, records)
     torch.cuda.empty_cache()
     phase_serve_mesh(dev, records)
+    torch.cuda.empty_cache()
+    # GPipe over a "pipe" axis (world size 1), the reference examples' twins
+    # and the dry run's cell
+    pipeline_phases(dev, records)
     torch.cuda.empty_cache()
     phase_checkpoint(dev, records, cfg=get_config("whisper-tiny"), tokens=CHECKPOINT_TOKENS, n_layers=None)
     train_families(dev, records)

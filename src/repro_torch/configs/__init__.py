@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Tuple
 
 ARCH_IDS = (
     "qwen2-0.5b",
@@ -135,6 +135,13 @@ class ArchConfig:
     def supports_long_context(self) -> bool:
         """Sub-quadratic decode state => long_500k is runnable."""
         return self.family in ("ssm", "hybrid")
+
+    def cells(self) -> Tuple[str, ...]:
+        """Runnable shape cells of this arch (the dry run's loop)."""
+        out = ["train_4k", "prefill_32k", "decode_32k"]
+        if self.supports_long_context():
+            out.append("long_500k")
+        return tuple(out)
 
 
 _MODULES = {arch: arch.replace("-", "_").replace(".", "_") for arch in ARCH_IDS}

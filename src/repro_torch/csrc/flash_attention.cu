@@ -522,6 +522,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (b <= 0 || hq <= 0 || sq <= 0) return (int)cudaSuccess;
   if (hkv <= 0 || hq % hkv != 0 || sk <= 0 || (causal && sq > sk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  // d = 16: the smoke configs' head dim (one 16-column slice a thread)
+  if (dtype == 0 && d == 16) return launch<float, 16>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, s);
   if (dtype == 0 && d == 64) return launch<float, 64>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, s);
   if (dtype == 0 && d == 112) return launch<float, 112>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, s);
   if (dtype == 0 && d == 128) return launch<float, 128>(q, k, v, out, b, hq, hkv, sq, sk, scale, causal, s);

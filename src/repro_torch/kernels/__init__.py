@@ -18,3 +18,16 @@ from repro_torch.kernels.block_transform.ops import block_transform_quantize
 from repro_torch.kernels.quantize.ops import quantize_edits
 
 __all__ = ["block_transform_quantize", "quantize_edits"]
+
+
+def launch_counters():
+    """Every kernel wrapper's ``launches`` dict."""
+    from repro_torch.kernels.block_transform import ops as bt_ops
+    from repro_torch.kernels.fcube import ops as fcube_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.quantize import ops as quantize_ops
+    from repro_torch.kernels.rfft import ops as rfft_ops
+    from repro_torch.kernels.scube import ops as scube_ops
+
+    return (scube_ops.launches, fcube_ops.launches, rfft_ops.launches, flash_ops.launches,
+            quantize_ops.launches, bt_ops.launches)

@@ -22,8 +22,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 #: kernel launches by wrapper (reset it to 0 to count a run's launches)
 launches = {"flash_attention": 0}
 
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (64, 112, 128)
+#: head dims the kernels are instantiated for, by dtype (16, the smoke
+#: configs' head dim, on the float32 kernel only)
+HEAD_DIMS = {torch.float32: (16, 64, 112, 128), torch.bfloat16: (64, 112, 128)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -37,7 +38,7 @@ def flash_attention(
     """Causal GQA attention; shapes (b, hq, sq, d) / (b, hkv, sk, d).
 
     CPU tensors take :func:`attention_ref`; CUDA tensors launch the kernel
-    (float32 or bfloat16, contiguous, d in :data:`HEAD_DIMS`; bfloat16
+    (float32 or bfloat16, contiguous, d in the dtype's :data:`HEAD_DIMS`; bfloat16
     operands 16-byte aligned, as TMA reads them) or raise.  The kernel has no
     backward: a call that autograd would have to differentiate raises
     instead of returning an output with no gradient.
@@ -56,8 +57,8 @@ def flash_attention(
     hkv, sk = k.shape[1], k.shape[2]
     if k.shape != (b, hkv, sk, d) or v.shape != k.shape:
         raise ValueError(f"k and v must be (b, hkv, sk, {d}) with b={b}, got {tuple(k.shape)}, {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(f"head_dim {d}: the kernel is built for {HEAD_DIMS}")
+    if d not in HEAD_DIMS[q.dtype]:
+        raise NotImplementedError(f"head_dim {d}: the {q.dtype} kernel is built for {HEAD_DIMS[q.dtype]}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"GQA requires hq % hkv == 0, got hq={hq}, hkv={hkv}")
     if sk == 0:

@@ -88,7 +88,7 @@ def make_serve_step(bundle: ModelBundle):
     return serve_step
 
 
-def make_step(cfg, shape_id: str, mesh, optimizer: AdamW | None = None, engine=None):
+def make_step(cfg, shape_id: str, mesh, optimizer: AdamW | None = None, engine=None, device=None):
     """Build ``(step, args, in_shardings, out_shardings)`` for the cell
     ``shape_id`` of ``SHAPES`` over ``mesh``.
 
@@ -101,7 +101,8 @@ def make_step(cfg, shape_id: str, mesh, optimizer: AdamW | None = None, engine=N
 
     ``params`` and ``opt_state`` are this rank's shards, ``batch`` and
     ``tokens`` the global batch, ``cache`` this rank's.  ``engine`` is
-    the train step's gradient compression's."""
+    the train step's gradient compression's; ``device`` is where the
+    rank's tensors live (default: the mesh's; the dry run's ``"meta"``)."""
     from repro_torch.configs import SHAPES
     from repro_torch.launch.specs import input_specs, param_specs
     from repro_torch.sharding import fsdp
@@ -112,7 +113,7 @@ def make_step(cfg, shape_id: str, mesh, optimizer: AdamW | None = None, engine=N
     cfg = dataclasses.replace(cfg, mesh_axes=tuple(mesh_sizes(mesh).items()))
     seq, batch, kind = SHAPES[shape_id]
     optimizer = optimizer or AdamW()
-    layout = fsdp.MeshLayout(cfg, mesh)
+    layout = fsdp.MeshLayout(cfg, mesh, device)
     p_abs = param_specs(cfg)
     p_shard = layout.placements
     specs = input_specs(cfg, shape_id)

@@ -172,7 +172,9 @@ def _ranks_below(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
     import torch.distributed as dist
 
     group, n, rank = _SPLIT.get()
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    # bincount's counts, by an op that also runs on the meta device (the dry run)
+    counts = torch.zeros(n_experts, dtype=torch.int64, device=flat_e.device).scatter_add_(0, flat_e,
+                                                                                          torch.ones_like(flat_e))
     parts = [torch.empty_like(counts) for _ in range(n)]
     dist.all_gather(parts, counts, group=group)
     below = torch.zeros_like(counts)

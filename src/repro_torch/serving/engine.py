@@ -38,13 +38,18 @@ class Request:
 class ServingEngine:
     """``params``: a model from ``build_model(cfg).init``/``load``, a state dict
     (see ``convert.lm_params_from_reference``), or None to initialise one
-    from ``rng_seed``.  ``device=None`` means ``"cuda"``."""
+    from ``rng_seed``.  ``device=None`` means ``"cuda"``.  ``engine`` is the
+    :class:`~repro_torch.core.engine.CorrectionEngine` of KV-cache
+    compression (None: the device's default engine, ``fft_impl="xla"`` as
+    the reference's; ``fft_impl="pallas"`` runs kernels 3p/4p)."""
 
-    def __init__(self, cfg: ArchConfig, serve: ServeConfig, params=None, rng_seed: int = 0, device=None):
+    def __init__(self, cfg: ArchConfig, serve: ServeConfig, params=None, rng_seed: int = 0, device=None,
+                 engine=None):
         self.cfg = cfg
         self.serve = serve
         self.bundle = build_model(cfg, device)
         self.device = self.bundle.device
+        self.engine = engine
         if params is None:
             params = self.bundle.init(torch.Generator(device=self.device).manual_seed(rng_seed))
         elif isinstance(params, Mapping):
@@ -108,7 +113,7 @@ class ServingEngine:
         cache = self.bundle.init_cache(len(reqs), self.cache_len(batch, n_new))
         logits, cache = self._prefill(self.params, batch, cache)
         if self.cfg.compression.kv_cache_compression and self.cfg.family != "ssm":
-            cache = compress_cache(cache, self.cfg.compression, engine=default_engine(self.device))
+            cache = compress_cache(cache, self.cfg.compression, engine=self.engine or default_engine(self.device))
         outs = [torch.argmax(logits[:, -1], dim=-1)]
         for _ in range(n_new - 1):
             logits, cache = self._decode(self.params, outs[-1][:, None], cache)

@@ -1,10 +1,10 @@
 """Distribution over ``torch.distributed``: the pencil-decomposed rFFT
 (``dist_fft``), the LM's partition rules (``rules``), tensor and expert
-parallelism over a mesh's "model" axis (``tp``) and fully sharded data
-parallelism with them (``fsdp``).
+parallelism over a mesh's "model" axis (``tp``), fully sharded data
+parallelism with them (``fsdp``) and GPipe over a "pipe" axis
+(``pipeline``).
 
-The reference's ``sharding/pipeline.py`` (GPipe) is not ported yet
-(ROADMAP.md Queue 1); ``shardmap.py`` is a JAX-version shim.
+The reference's ``shardmap.py`` is a JAX-version shim with no counterpart.
 """
 
 from repro_torch.sharding.dist_fft import (
@@ -16,6 +16,7 @@ from repro_torch.sharding.dist_fft import (
     pencil_rfftn,
     validate_pencil_shape,
 )
+from repro_torch.sharding.pipeline import bubble_fraction, pipeline_apply
 
 __all__ = [
     "DistSpec",
@@ -25,4 +26,6 @@ __all__ = [
     "pencil_rfftn",
     "pencil_irfftn",
     "validate_pencil_shape",
+    "pipeline_apply",
+    "bubble_fraction",
 ]

@@ -185,14 +185,17 @@ class MeshLayout:
     The ranks that hold distinct blocks are the (data, model) ranks of one
     pod: ``group``, ``n`` and ``rank`` (data-major: rank ``d * n_model +
     m``); the data and model axes alone are ``data_group``/``n_data``/
-    ``data_rank`` and ``model_group``/``n_model``/``model_rank``."""
+    ``data_rank`` and ``model_group``/``n_model``/``model_rank``.
 
-    def __init__(self, cfg: ArchConfig, mesh):
+    ``device`` is where the rank's tensors live (default: the mesh's
+    device; the dry run passes ``"meta"``)."""
+
+    def __init__(self, cfg: ArchConfig, mesh, device=None):
         require_device_mesh(mesh)
         self.cfg = cfg
         self.mesh = mesh
         self.sizes = mesh_sizes(mesh)
-        self.device = dist_fft.mesh_device(mesh)
+        self.device = torch.device(device) if device is not None else dist_fft.mesh_device(mesh)
         self.skeleton = lm_class(cfg)(cfg, device="meta")
         meta = self.skeleton.state_dict()
         self.shapes = {k: tuple(v.shape) for k, v in meta.items()}
@@ -430,22 +433,34 @@ class _CaptureCopies(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
+def draw_init(skeleton: nn.Module, cfg: ArchConfig, gen: torch.Generator, take: Callable) -> None:
+    """Run the model's own ``init_`` on its meta ``skeleton`` with ``gen``
+    and hand each value it draws to ``take(name, value)``, one parameter at
+    a time (whole for a moment): the one-device initialization's values
+    (``build_model(cfg).init(gen)`` with a generator seeded alike) without
+    the model ever being whole.  Parameters ``init_`` leaves at their
+    constructor value (RMSNorm scales: ones) are not handed over."""
+    params = dict(skeleton.named_parameters())
+    with _CaptureCopies({id(p): k for k, p in params.items()}, take):
+        skeleton.init_(gen, cfg)
+
+
 def init_shards(layout: MeshLayout, gen: torch.Generator) -> Dict[str, torch.Tensor]:
     """This rank's shards of the one-device initialization
     (``build_model(cfg).init(gen)`` with a generator seeded alike).
 
     The model's own ``init_`` runs on the meta skeleton with ``gen`` (on the
     mesh's device): each value it draws is whole for a moment, cast to the
-    parameter's dtype and cut to this rank's shard.  Parameters ``init_``
-    leaves at their constructor value are RMSNorm scales: ones."""
+    parameter's dtype and cut to this rank's shard (:func:`draw_init`).
+    Parameters ``init_`` leaves at their constructor value are RMSNorm
+    scales: ones."""
     out: Dict[str, torch.Tensor] = {}
     params = dict(layout.skeleton.named_parameters())
 
     def take(name, value):
         out[name] = layout.shard(name, value.to(layout.dtypes[name]))
 
-    with _CaptureCopies({id(p): k for k, p in params.items()}, take):
-        layout.skeleton.init_(gen, layout.cfg)
+    draw_init(layout.skeleton, layout.cfg, gen, take)
     owners = {f"{m}.scale" if m else "scale": mod for m, mod in layout.skeleton.named_modules()}
     for name in params:
         if name not in out:

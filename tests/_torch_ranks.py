@@ -640,7 +640,88 @@ def _tp_trainer(rank, world, mesh, ck, shape):
             + again.layout.state_bytes(again.opt_state), "share": again.layout.share_bytes()}
 
 
-BODIES = {"transforms": body_transforms, "sharded": body_sharded, "mesh": body_mesh, "tp": body_tp}
+#: pipeline meshes a world size runs: (shape over ("pipe", "data"))
+PIPE_MESHES = {1: [(1, 1)], 4: [(4, 1), (2, 2)]}
+
+
+def pipe_stack(n_stages, Ws, bs):
+    """The tanh stack's (W, b) regrouped into ``n_stages`` stages of
+    consecutive layers (leading axis the stage)."""
+    layers = Ws.shape[0] * Ws.shape[1]
+    per = layers // n_stages
+    return (Ws.reshape((n_stages, per) + Ws.shape[2:]), bs.reshape((n_stages, per) + bs.shape[2:]))
+
+
+def pipe_stage_fn(params, h):
+    import torch
+
+    W, b = params
+    for l in range(W.shape[0]):
+        h = torch.tanh(h @ W[l] + b[l])
+    return h
+
+
+def body_pipeline(rank, world, inputs):
+    """``pipeline_apply`` of the tanh stack at every mesh of PIPE_MESHES
+    (leading stage axes of S, and of 1: the rank's own stage), its outputs
+    and the gradients of a loss every rank computes alike on its copy of the
+    outputs with respect to the stage parameters and the microbatches."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import dist_fft
+    from repro_torch.sharding.pipeline import pipeline_apply
+
+    out = {}
+    for shape in PIPE_MESHES[world]:
+        mesh = make_mesh(shape, ("pipe", "data"))
+        _g, S, idx = dist_fft.mesh_axis(mesh, "pipe")
+        data_idx = dist_fft.mesh_axis(mesh, "data")[2]
+        W, b = (torch.from_numpy(a) for a in pipe_stack(S, inputs["Ws"], inputs["bs"]))
+        x = torch.from_numpy(inputs["x"])
+        with torch.no_grad():
+            own = pipeline_apply(pipe_stage_fn, (W[idx : idx + 1], b[idx : idx + 1]), x, mesh)
+        W.requires_grad_()
+        b.requires_grad_()
+        x.requires_grad_()
+        y = pipeline_apply(pipe_stage_fn, (W, b), x, mesh)
+        loss = (y * torch.from_numpy(inputs["w_loss"])).sum()
+        loss.backward()
+        gx = x.grad if x.grad is not None else torch.zeros_like(x)  # only stage 0 reads the stream
+        out[shape] = {"pipe": idx, "data": data_idx, "y": _np(y), "own": _np(own), "loss": float(loss.detach()),
+                      "gW": _np(W.grad), "gb": _np(b.grad), "gx": _np(gx)}
+        if S > 1:  # one stage given a shorter stream: every stage refuses it
+            bad = x.detach()[:-1] if idx == 1 else x.detach()
+            try:
+                with torch.no_grad():
+                    pipeline_apply(pipe_stage_fn, (W, b), bad, mesh)
+                out[shape]["refused"] = None
+            except ValueError as e:
+                out[shape]["refused"] = str(e)
+    return out
+
+
+def body_cost(rank, world):
+    """The cost counter over a collective of each kind the step uses: an
+    ``all_reduce`` of (8, 4) float32 and an ``all_gather_into_tensor`` of
+    (3, 5) float32 into (3 * world, 5), and a product between them."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.hlo_cost import count_cost
+
+    def step(a, b):
+        dist.all_reduce(a)
+        out = torch.empty((3 * world, 5))
+        dist.all_gather_into_tensor(out, b)
+        return a @ a.T
+
+    c = count_cost(step, torch.ones(8, 4), torch.full((3, 5), float(rank)))
+    return {"flops": c.flops, "collectives": c.collectives, "coll_by_name": c.coll_by_name}
+
+
+BODIES = {"transforms": body_transforms, "sharded": body_sharded, "mesh": body_mesh, "tp": body_tp,
+          "pipeline": body_pipeline, "cost": body_cost}
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,10 @@ Phases, one JSON line each (or more):
               logits within max(1e-4, twice the floor between the two
               cache-less forwards) of a cache-less forward, and that bar
               missed by a decode step whose cache has its SSM states (or,
-              without any, its v) zeroed.  bf16: the forward loss of 4x2048
+              without any, its v) zeroed; the float32 flash kernel's first
+              call at each shape of the loss and of the served batch
+              (paths "float32 loss/serve <arch>") held against its twin
+              within 3e-5.  bf16: the forward loss of 4x2048
               tokens (flash launches: one a layer, one a group for zamba2's
               shared block, one a decoder layer for whisper, none for
               mamba2) within 1e-3 of the second
@@ -138,8 +141,9 @@ Phases, one JSON line each (or more):
               against its twin and of kernels 3p/4p bitwise
   dryrun      launch/dryrun.run_cell on qwen2-0.5b x train_4k x 16x16 (256
               fake ranks, rank 0's step on meta tensors under the cost
-              counter; a process of its own, run while phase examples
-              does): the record ok, a nonempty count, no kernel launch
+              counter; a process of its own, run while phase
+              train_family does): the record ok, a nonempty count, no
+              kernel launch
   grad_pallas one step's gradients (315 M values) through compress_gradients
               with the pallas engine (kernels 3 and 4 per pencil) and the
               xla engine, every pencil rechecked in float64 on the host
@@ -232,11 +236,19 @@ their gates.
 
 builds the kernels and runs phases pipeline, examples and dryrun alone,
 with their gates.
+
+    python3 chip_smoke.py --flash
+
+builds the kernels and runs the flash kernel's build report and its cases
+at qwen2-0.5b's and the families' shapes alone (both dtypes), with their
+gates.
 """
 
 from __future__ import annotations
 
+import atexit
 import json
+import os
 import subprocess
 import sys
 import time
@@ -244,12 +256,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 STARTED = time.perf_counter()
+# growable allocator segments for the whole run (read when torch first
+# allocates on the card): zamba2-7b's training step peaks at 75 of the
+# card's 80 GB, and with fixed-size segments the allocator stranded ~20 GB
+# of free blocks inside used ones and refused a 5.2 GB request (NVIDIA H100
+# 80GB HBM3, 700 W)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor FP32 FLOP/s
-# and dense bf16 tensor-core FLOP/s
+# and dense bf16 and TF32 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
+TF32_TENSOR_FLOP_PER_S = 495e12
 # qwen2-0.5b layers of phase train (CUTS)
 TRAIN_LAYERS = 12
 # phase 6 runs below the 256^3 of phases 4-5: the pspec bound makes every
@@ -530,9 +549,14 @@ def causal_attention_flops(b, hq, sq, sk, d) -> int:
     return 4 * b * hq * d * pairs
 
 
-# (label, sq, sk, head dim)
+# (label, sq, sk, head dim); head dim 16 (the smoke configs') has a float32
+# kernel only
 FLASH_CASES = (("prefill", 2048, 2048, 64), ("suffix", 128, 2048, 64), ("ragged", 1030, 1030, 64),
-               ("prefill_d128", 2048, 2048, 128))
+               ("prefill_d128", 2048, 2048, 128), ("prefill_d16", 2048, 2048, 16))
+#: the flash library's kernels: bf16 at 3 head dims, the float32 kernel and
+#: its split prologue at 4
+FLASH_ENTRIES = ("flash_fwd_sm90", "flash_fwd_split_tf32", "flash_split_tf32_prologue")
+FLASH_KERNEL_COUNT = 3 + 4 + 4
 
 
 def ptxas_report(library, entries):
@@ -578,7 +602,21 @@ def flash_build_report():
                            str(build.library_path("flash_attention"))],
                           capture_output=True, text=True, timeout=300, check=True).stdout
     counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
-    return counts, ptxas_report("flash_attention", ("flash_fwd_sm90", "flash_fwd_kernel"))
+    return counts, ptxas_report("flash_attention", FLASH_ENTRIES)
+
+
+def flash_checks(dev):
+    """The flash library's SASS and ptxas gates, then phase_flash and
+    phase_flash_families; returns the flash record."""
+    sass, ptxas = flash_build_report()
+    emit("lm", part="flash_build", sass=sass, ptxas=ptxas)
+    require(sass["HGMMA"] > 0, "flash_attention: no HGMMA (wgmma) in the library's SASS")
+    require(sass["UTMALDG"] + sass["UBLKCP"] > 0, "flash_attention: no TMA load in the library's SASS")
+    require(no_spills(ptxas, FLASH_KERNEL_COUNT),
+            f"flash_attention: ptxas reports spills or misses a kernel: {ptxas}")
+    record = phase_flash(dev)
+    phase_flash_families(dev, record)
+    return record
 
 
 def phase_flash(dev, heads=(4, 14, 2), lengths=FLASH_CASES):
@@ -598,6 +636,8 @@ def phase_flash(dev, heads=(4, 14, 2), lengths=FLASH_CASES):
     cases = []
     for label, sq, sk, d in lengths:
         for dtype in (torch.bfloat16, torch.float32):
+            if d not in flash_ops.HEAD_DIMS[dtype]:
+                continue
             q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
                        for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
             got = flash_ops.flash_attention(q, k, v)
@@ -617,11 +657,15 @@ def phase_flash(dev, heads=(4, 14, 2), lengths=FLASH_CASES):
                 require(err <= 3e-5, f"flash_attention {label} f32: max |kernel - twin| {err} > 3e-5")
             flops = causal_attention_flops(b, hq, sq, sk, d)
             n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-            peak = BF16_TENSOR_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+            # bf16: one tensor-core product a product; float32 (split TF32):
+            # three TF32 tensor-core products a product
+            t_ops = (flops / BF16_TENSOR_FLOP_PER_S if dtype == torch.bfloat16
+                     else 3 * flops / TF32_TENSOR_FLOP_PER_S)
+            t_bytes = n_bytes / HBM_BYTES_PER_S
             case.update(
                 flops=flops, bytes=n_bytes,
                 bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                # the CUDA cores' float32 floor (the design before split TF32)
                 bound_ms_fp32_cuda_cores=flops / FP32_FLOP_PER_S * 1e3,
                 bound_ms_bf16_tensor=flops / BF16_TENSOR_FLOP_PER_S * 1e3,
                 bound_ms_bytes=t_bytes * 1e3,
@@ -642,7 +686,8 @@ def phase_flash(dev, heads=(4, 14, 2), lengths=FLASH_CASES):
     main = cases[0]
     d128 = next((c for c in cases if c["dtype"] == "bfloat16" and c["q"][-1] == 128), None)
     d128_f32 = next((c for c in cases if c["dtype"] == "float32" and c["q"][-1] == 128), None)
-    f32 = cases[1]  # the main case's float32 twin
+    d16_f32 = next((c for c in cases if c["dtype"] == "float32" and c["q"][-1] == 16), None)
+    f32 = next(c for c in cases if c["dtype"] == "float32")  # the first case's float32 run
     return {
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:41", "launches": 0,
@@ -651,8 +696,10 @@ def phase_flash(dev, heads=(4, 14, 2), lengths=FLASH_CASES):
         "library_ms": main["library_ms"],
         "ms_d128": d128 and d128["ms"], "library_ms_d128": d128 and d128["library_ms"],
         "ms_float32": f32["ms"], "bound_ms_float32": f32["bound_ms"], "library_ms_float32": f32["library_ms"],
+        "bound_ms_fp32_cuda_cores_float32": f32["bound_ms_fp32_cuda_cores"],
         "ms_d128_float32": d128_f32 and d128_f32["ms"], "bound_ms_d128_float32": d128_f32 and d128_f32["bound_ms"],
         "library_ms_d128_float32": d128_f32 and d128_f32["library_ms"],
+        "ms_d16_float32": d16_f32 and d16_f32["ms"], "library_ms_d16_float32": d16_f32 and d16_f32["library_ms"],
     }
 
 
@@ -1203,7 +1250,7 @@ def phase_flash_families(dev, record, cases=FAMILY_FLASH_CASES):
         record["max_abs_err"] = max(record["max_abs_err"], r["max_abs_err"])
         record.setdefault("by_shape", {})[label] = {k: r[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_float32", "bound_ms_float32",
-            "library_ms_float32")}
+            "bound_ms_fp32_cuda_cores_float32", "library_ms_float32")}
 
 
 def family_layers(cfg):
@@ -1335,30 +1382,56 @@ def cache_fault(cfg, params, served, dev):
     return leaf, diffs[0], diffs[1]
 
 
-def lm_float32(dev, cfg, phase, tokens, requests):
+def lm_float32(dev, cfg, phase, tokens, requests, records):
     """``cfg`` in float32 (for moe at :func:`no_drop`'s capacity), weights
     from seed 0: the loss of (2, ``tokens[1]``) tokens within 1e-4 of the
     second forward's; one batch of 4 requests' decode logits within
     max(1e-4, twice the floor between the two cache-less forwards) of a
     cache-less forward; and a planted cache fault (:func:`cache_fault`),
-    which must miss that bar."""
+    which must miss that bar.  The float32 flash kernel's launches of the
+    loss (one a causal attention layer) and of the served batch are added
+    to ``records``' flash row, by path, and its first call at each shape
+    of each path is held against ``attention_ref`` (:func:`hold_flash_calls`)."""
     import dataclasses
 
     import torch
 
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models.model import build_model
 
     cfg32 = dataclasses.replace(no_drop(cfg), dtype="float32")
     gen = torch.Generator(device=dev).manual_seed(0)
     params = build_model(cfg32, device=dev).init(gen)
     batch = lm_batch(cfg, (2, tokens[1]), gen, dev)
-    scored, _ = score(cfg32, params, batch, dev)
-    served = serve_and_check(cfg32, params, requests[:4], dev)
+    loss_calls, undo = first_calls((flash_ops, ("flash_attention",)))
+    try:
+        scored, counts = score(cfg32, params, batch, dev)
+    finally:
+        undo()
+    require(counts["flash_attention"] == family_layers(cfg32),
+            f"{cfg.name}: {counts['flash_attention']} float32 flash launches, want {family_layers(cfg32)}")
+    serve_calls, undo = first_calls((flash_ops, ("flash_attention",)))
+    read = reset_launches()
+    try:
+        served = serve_and_check(cfg32, params, requests[:4], dev)
+    finally:
+        undo()
+    served_flash = read()["flash_attention"]
     bar = max(1e-4, 2 * served["floor"])
     leaf, clean, faulty = cache_fault(cfg32, params, served, dev)
     del params
     torch.cuda.empty_cache()
+    flash = records["flash_attention"]
+    flash["launches"] += counts["flash_attention"] + served_flash
+    by_path = flash.setdefault("launches_by_path", {})
+    for path, calls, n in ((f"float32 loss {cfg.name}", loss_calls, counts["flash_attention"]),
+                           (f"float32 serve {cfg.name}", serve_calls, served_flash)):
+        by_path[path] = n
+        if n:
+            hold_flash_calls(path, flash, calls)
+    del loss_calls, serve_calls
     emit("lm_family", **phase, part="float32", tokens=list(batch["tokens"].shape), **scored,
+         flash_launches={"loss": counts["flash_attention"], "serve": served_flash},
          decode_vs_cacheless_max_abs=served["diff"], cacheless_floor_max_abs=served["floor"], bar=bar,
          logit_scale=served["scale"], planted_fault=f"zeroed {leaf}", fault_free_step_max_abs=clean,
          faulty_step_max_abs=faulty)
@@ -1447,7 +1520,7 @@ def phase_lm_family(dev, records, arch, cfg=None, tokens=(4, 2048), prompts=(4, 
     cfg = cfg or get_config(arch, attention_impl="pallas")
     phase = dict(arch=cfg.name, family=cfg.family, layers=cfg.n_layers)
     lengths, requests = lm_requests(cfg, prompts)
-    summary = {"arch": cfg.name, "layers": cfg.n_layers, **lm_float32(dev, cfg, phase, tokens, requests)}
+    summary = {"arch": cfg.name, "layers": cfg.n_layers, **lm_float32(dev, cfg, phase, tokens, requests, records)}
     moved = ()
     if arch in CHECK_DEPTH:
         summary.update(lm_check_depth(dev, arch, cfg, phase, tokens, requests))
@@ -1856,10 +1929,6 @@ def phase_train_family(dev, records, arch, cfg=None, tokens=(4, 2048), check_tok
     phase = dict(arch=cfg.name, family=cfg.family, layers=cfg.n_layers)
     check = grad_check(dev, cfg, min(GRAD_CHECK_LAYERS.get(arch, 2), cfg.n_layers), check_tokens)
     emit("train_family", **phase, part="grad_check", **check)
-    # the check's float32 blocks go back to the card before zamba2-7b's 75 GB
-    # training peak: left cached, they once failed its step (19.6 GB of
-    # reserved, unallocated blocks)
-    torch.cuda.empty_cache()
 
     work = WORK_DIR / "train_family"
     shutil.rmtree(work, ignore_errors=True)
@@ -2199,7 +2268,6 @@ def phase_checkpoint(dev, records, cfg=None, tokens=(4, 2048), n_layers=2):
     (a device copy, inside the timed save), replayed against the twins
     after it."""
     import dataclasses
-    import os
     import resource
     import shutil
     import threading
@@ -2876,7 +2944,9 @@ def phase_sharded(dev, records, codec_cases=SHARDED_CODEC, spectrum_field="nyx-l
 
     - codec: ``FFCz.compress(ShardedField)`` of each case with
       ``fft_impl="packed"`` (the loop's dist mode), both stored bounds
-      rechecked in float64, ``decompress_sharded`` bitwise ``decompress``;
+      rechecked in float64, ``decompress_sharded`` bitwise ``decompress``,
+      the host stages (base, polish, encode, verify) run once, on the
+      root (the counters ``engine.host_stages``);
     - backend: a pallas ``CorrectionEngine(backend="sharded")`` on ``rows``
       pencils of ``block`` (kernels 3p, 4p), bitwise the batched engine's
       corrected values, edits and per-block stats; its launches are counted
@@ -2896,7 +2966,7 @@ def phase_sharded(dev, records, codec_cases=SHARDED_CODEC, spectrum_field="nyx-l
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.compressors import get_compressor
-    from repro_torch.core.engine import CorrectionEngine
+    from repro_torch.core.engine import CorrectionEngine, host_stages
     from repro_torch.core.ffcz import FFCz, FFCzConfig
     from repro_torch.core.spectrum import power_spectrum
     from repro_torch.data.fields import error_pencils, make_field
@@ -2927,7 +2997,13 @@ def phase_sharded(dev, records, codec_cases=SHARDED_CODEC, spectrum_field="nyx-l
                 # the single-device path on the same field: bound-class
                 # (the same host-resolved E, Delta at float32 FFT rounding)
                 single = codec.compress(x)
-            blob = codec.compress(ShardedField.shard(x, mesh))
+            field = ShardedField.shard(x, mesh)
+            before = dict(host_stages)
+            blob = codec.compress(field)
+            calls = {k: host_stages[k] - before[k] for k in ("base", "polish", "encode", "verify")}
+            emit("sharded", part="host_stages", case=label, rank=field.rank, root=field.is_root, calls=calls)
+            require(field.is_root and all(n == 1 for n in calls.values()),
+                    f"sharded {label}: the host stages did not run once on the root: {calls}")
             t0 = time.perf_counter()
             dec = codec.decompress(blob)
             decode_s = time.perf_counter() - t0
@@ -3434,14 +3510,21 @@ DRYRUN_CELL = ("qwen2-0.5b", "train_4k", False)  # 16x16
 def start_dryrun():
     """``launch/dryrun.run_cell`` of DRYRUN_CELL in a process of its own (it
     makes the default process group a 256-rank fake one; meta tensors, no
-    card), started now and read by :func:`phase_dryrun`."""
-    import os
-
+    card), started now and read by :func:`phase_dryrun`; stopped at this
+    script's exit if still running."""
     code = ("import json; from repro_torch.launch.dryrun import run_cell; "
             f"print('RECORD ' + json.dumps(run_cell(*{DRYRUN_CELL!r})))")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
-    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True), time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    atexit.register(stop_process, proc)
+    return proc, time.perf_counter()
+
+
+def stop_process(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
 
 
 def phase_dryrun(started):
@@ -3636,21 +3719,23 @@ def phase_examples(dev, records, requests=6, new_tokens=12):
 
 
 def pipeline_phases(dev, records):
-    """Phase pipeline, then phase examples with the dry run's cell in a
-    process of its own meanwhile (phase dryrun reads it after them).  The
-    pipeline's timing comes first, alone: its forward is host-bound."""
+    """Phase pipeline, then phase examples."""
     import torch
 
     phase_pipeline(dev, records)
     torch.cuda.empty_cache()
+    phase_examples(dev, records)
+
+
+def beside_dryrun(run):
+    """``run()`` with the dry run's cell in a process of its own meanwhile
+    (CPU only, ~40 s), then phase dryrun, which reads it."""
     started = start_dryrun()
     try:
-        phase_examples(dev, records)
+        run()
         phase_dryrun(started)
     finally:
-        if started[0].poll() is None:
-            started[0].kill()
-            started[0].wait()
+        stop_process(started[0])
 
 
 def recheck(x, dec, blob):
@@ -3821,6 +3906,22 @@ def train_mesh_only() -> int:
     return 0
 
 
+def flash_only() -> int:
+    """Build the kernels and run the flash kernel's build report and phase
+    lm's kernel cases at qwen2-0.5b's and the families' shapes alone (their
+    gates too)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("device", nvidia_smi=nvidia_smi_line())
+    emit("build", seconds=build.build_all())
+    flash_checks("cuda")
+    return 0
+
+
 def pipeline_only() -> int:
     """Build the kernels and run phases pipeline, examples and dryrun alone
     (their gates too)."""
@@ -3834,6 +3935,7 @@ def pipeline_only() -> int:
     emit("build", seconds=build.build_all())
     records = {k: {"name": k, "launches": 0} for k in KERNEL_ROWS}
     pipeline_phases("cuda", records)
+    beside_dryrun(lambda: None)
     return 0
 
 
@@ -3860,9 +3962,11 @@ def main() -> int:
         return train_mesh_only()
     if sys.argv[1:] == ["--pipeline"]:
         return pipeline_only()
+    if sys.argv[1:] == ["--flash"]:
+        return flash_only()
     if sys.argv[1:]:
         print("usage: chip_smoke.py [--compare-lm OTHER_CHECKOUT | --decode-sweep | --train-families | --sharded "
-              "| --train-mesh | --pipeline]", file=sys.stderr)
+              "| --train-mesh | --pipeline | --flash]", file=sys.stderr)
         return 2
 
     from repro_torch.compressors import get_compressor
@@ -3930,13 +4034,7 @@ def main() -> int:
 
     # 8: the flash kernel, at qwen2-0.5b's shapes and at the families'
     # attention shapes (head dim 112: zamba2-7b), and the per-pencil kernels
-    sass, ptxas = flash_build_report()
-    emit("lm", part="flash_build", sass=sass, ptxas=ptxas)
-    require(sass["HGMMA"] > 0, "flash_attention: no HGMMA (wgmma) in the library's SASS")
-    require(sass["UTMALDG"] + sass["UBLKCP"] > 0, "flash_attention: no TMA load in the library's SASS")
-    require(no_spills(ptxas, 7), f"flash_attention: ptxas reports spills or misses a kernel: {ptxas}")
-    records["flash_attention"] = phase_flash(dev)
-    phase_flash_families(dev, records["flash_attention"])
+    records["flash_attention"] = flash_checks(dev)
     records.update(phase_pencil_kernels(dev))
 
     # the port's distribution at world size 1: the sharded codec, the
@@ -3972,12 +4070,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serve_mesh(dev, records)
     torch.cuda.empty_cache()
-    # GPipe over a "pipe" axis (world size 1), the reference examples' twins
-    # and the dry run's cell
+    # GPipe over a "pipe" axis (world size 1) and the reference examples' twins
     pipeline_phases(dev, records)
     torch.cuda.empty_cache()
     phase_checkpoint(dev, records, cfg=get_config("whisper-tiny"), tokens=CHECKPOINT_TOKENS, n_layers=None)
-    train_families(dev, records)
+    # the families' training, with the dry run's cell beside it: after every
+    # kernel's timing and phases 4-7, whose times it would share the host with
+    beside_dryrun(lambda: train_families(dev, records))
 
     # the service path: temporal streams (field frames, EEG pencils), the
     # FFCz service without and with injected faults, a recovered session

@@ -13,6 +13,12 @@ sharded along axis 0 over a 1-D mesh ``("data",)``.  Then:
   opens the group's collectives), the second after a barrier: both stored
   bounds rechecked in float64, ``decompress_sharded`` bitwise
   ``decompress``, every rank's blob the same;
+- each rank's host memory over the steady compress: its resident set
+  sampled every 5 ms by a thread, the largest sample less the one taken
+  just before the call; and how many times each rank ran each host stage
+  there (``engine.host_stages``: the host stages run on rank 0 alone, so
+  the other ranks' resident sets grow by a few slabs, rank 0's by the
+  field's host stages);
 - the loop alone (``execute_field_async``), twice, each after a barrier;
 - on the card, each rank's peak device memory over the steady compress and
   over ``to_host`` beyond what it held before, in slabs (one rank's
@@ -37,6 +43,7 @@ import argparse
 import hashlib
 import json
 import os
+import threading
 import time
 
 import numpy as np
@@ -45,6 +52,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch.compressors import get_compressor
+from repro_torch.core import engine as engine_module
 from repro_torch.core.engine import CorrectionEngine
 from repro_torch.core.ffcz import FFCz, FFCzConfig
 from repro_torch.core.spectrum import power_spectrum
@@ -81,6 +89,37 @@ def peak_read(dev, held):
     return None if held is None else torch.cuda.max_memory_allocated(dev) - held
 
 
+def resident_bytes() -> int:
+    """This process's resident set now (Linux ``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class ResidentGrowth:
+    """While the context is open, a thread samples :func:`resident_bytes`
+    every ``period`` seconds; ``growth`` is then the largest sample less the
+    one taken on entry, in MiB."""
+
+    def __init__(self, period: float = 0.005):
+        self.period, self.growth = period, None
+
+    def _sample(self):
+        while not self._done.wait(self.period):
+            self._peak = max(self._peak, resident_bytes())
+
+    def __enter__(self):
+        self._done = threading.Event()
+        self._base = self._peak = resident_bytes()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._thread.join()
+        self.growth = (max(self._peak, resident_bytes()) - self._base) / 2**20
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--field", default="nyx-like-128")
@@ -101,14 +140,19 @@ def main():
     x = make_field(args.field)
     codec = FFCz(get_compressor("szlike"), FFCzConfig(E_rel=1e-3, Delta_rel=1e-3, fft_impl="packed",
                                                      max_iters=3000), device=args.device)
-    first = codec.compress(ShardedField.shard(x, mesh)).stats.stage_seconds
     field = ShardedField.shard(x, mesh)
+    first = codec.compress(field).stats.stage_seconds
     slab_bytes = field.local.numel() * field.local.element_size()
+    # the host stages' counters (a library without them reports None)
+    stages = getattr(engine_module, "host_stages", None)
+    before = dict(stages or {})
     sync(dev)
     dist.barrier()
     held = peak_start(dev)
-    blob = codec.compress(field)
+    with ResidentGrowth() as resident:
+        blob = codec.compress(field)
     compress_peak = peak_read(dev, held)
+    ran = None if stages is None else {k: stages[k] - before[k] for k in stages}
     dec = codec.decompress(blob)
     eps = dec.astype(np.float64) - x.astype(np.float64)
     d = np.fft.rfftn(eps)
@@ -138,7 +182,7 @@ def main():
     del fresh
     mine = {"stage_seconds": blob.stats.stage_seconds, "loop_seconds": loop_s, "payload": payload,
             "compress_peak_slabs": None if compress_peak is None else compress_peak / slab_bytes,
-            "to_host_peak_bytes": to_host_peak}
+            "to_host_peak_bytes": to_host_peak, "host_stages": ran, "host_growth_mib": resident.growth}
     every = [None] * world
     dist.all_gather_object(every, mine)
     same_blob = len({r["payload"] for r in every}) == 1
@@ -150,7 +194,10 @@ def main():
                     "stage_seconds": blob.stats.stage_seconds, "first_call_stage_seconds": first,
                     "loop_seconds": loop_s}
     out["by_rank"] = {k: [r[k] for r in every] for k in ("stage_seconds", "loop_seconds", "compress_peak_slabs",
-                                                         "to_host_peak_bytes")}
+                                                         "to_host_peak_bytes", "host_stages", "host_growth_mib")}
+    if ran is not None:
+        out["polished_on"] = [i for i, r in enumerate(every) if r["host_stages"]["polish"]]
+        ok &= out["polished_on"] == [0] and every[0]["host_stages"]["polish"] == 1
     out["memory"] = {"slab_bytes": slab_bytes, "field_bytes": x.nbytes, "to_host_within_one_slab": to_host_ok}
 
     spectrum = field.freq_to_host(pencil_rfftn(field))

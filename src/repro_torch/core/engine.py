@@ -49,6 +49,11 @@ from repro_torch.sharding.dist_fft import ShardedField
 _BACKENDS = ("local", "batched", "sharded")
 _FFT_IMPLS = ("xla", "packed", "pallas")
 
+#: how many times this process ran each of the codec's host stages: the base
+#: compressor, the float64 polish (fields and pencils), ENCODE of a field,
+#: verification and a decode; read and reset like a kernel's ``launches``
+host_stages = {"base": 0, "polish": 0, "encode": 0, "verify": 0, "decode": 0}
+
 
 # ---------------------------------------------------------------------------
 # shared guarantee math (host numpy float64, as in the reference)
@@ -68,6 +73,7 @@ def polish_pocs_float64(eps, spat, freq, E, Delta, axes=None, max_iters: int = 3
     result is bitwise the one-chunk result (no row depends on another, and
     every chunk stops at the first iteration in which no row moves).
     """
+    host_stages["polish"] += 1
     axes = tuple(range(eps.ndim)) if axes is None else tuple(axes)
     s = [eps.shape[a] for a in axes]
     eps, spat, freq = np.array(eps), np.array(spat), np.array(freq)
@@ -99,6 +105,27 @@ def polish_pocs_float64(eps, spat, freq, E, Delta, axes=None, max_iters: int = 3
                 break
             list(run(lambda a: inverse(a[0], *a[1]), zip(parts, fwd)))
     return eps, spat, freq
+
+
+def _sharded_range(x: ShardedField) -> Tuple[float, float]:
+    """(min, max) of a sharded field's real rows, all-reduced in float32
+    (exact in any order); a rank without real rows counts (+inf, -inf)."""
+    s0 = x.padded_shape[0] // x.n_dev
+    rows = x.local[: max(0, min(s0, x.gshape[0] - x.rank * s0))]
+    inf = torch.tensor(np.inf, dtype=torch.float32, device=x.local.device)
+    ext = torch.stack([torch.max(rows), -torch.min(rows)]) if rows.numel() else torch.stack([-inf, -inf])
+    dist_fft.all_reduce_(ext, x.group, dist.ReduceOp.MAX)
+    return -float(ext[1]), float(ext[0])
+
+
+def _without_grids(plan: "FieldPlan") -> "FieldPlan":
+    """``plan`` with its pointwise Delta_k and ROI grids taken out (``None``):
+    what the root of a sharded plan hands the other ranks."""
+    if plan.pointwise:
+        plan = dataclasses.replace(plan, Delta=None, Delta_proj=None)
+    if plan.E_grid is not None:
+        plan = dataclasses.replace(plan, E_grid=None, E_grid_proj=None)
+    return plan
 
 
 def _host_l2_norm(x32: np.ndarray) -> float:
@@ -234,7 +261,8 @@ class FieldResult:
 
     When ``converged`` is False, ``final_violations`` is the pair-weighted
     full-spectrum count of frequency components still outside the (shrunk)
-    f-cube *after* the float64 polish.
+    f-cube *after* the float64 polish.  A sharded field's result holds the
+    arrays and the count on its root only (``None`` on the other ranks).
     """
 
     eps: np.ndarray  # final error vector (float64, inside the s-cube)
@@ -426,21 +454,27 @@ class CorrectionEngine:
 
         A :class:`~repro_torch.sharding.dist_fft.ShardedField` (a collective
         call) keeps the spectrum sharded: the forward transform is
-        :func:`~repro_torch.sharding.dist_fft.pencil_rfftn`, maxima are
-        all-reduced (exact in any order), the ``E_rel`` range and the
-        norms come from the gathered host copy, and the ``pspec`` grid is
-        gathered to the host at the true extents, one block at a time.  The
-        plan is the same at every world size.
+        :func:`~repro_torch.sharding.dist_fft.pencil_rfftn`; minima and
+        maxima (the ``E_rel`` range, ``max |x|``, ``max |X_k|``) are
+        all-reduced in float32, exact in any order; the float64 norm keeps
+        its summation order on the root's gathered host copy, and the
+        ``pspec`` and ROI grids are built on the root.  The root then hands
+        every rank the plan's scalars (or the :class:`InfeasibleBound` it
+        raised): the other ranks' plans carry ``None`` where the root's
+        carry a grid, and the loop scatters each rank its block of those.
+        The root's plan is the same at every world size.
         """
         sharded = isinstance(x, ShardedField)
         E_abs, E_rel = cfg.E_abs, cfg.E_rel
         if sharded:
-            x32, x_dev = x.to_host(), x.local
+            x32, x_dev = x.to_root(), x.local  # x32: None off the root
             if E_abs is None and E_rel is not None:
-                # the slab-pad rows are zero and would enter the range's min:
-                # the host copy's float32 max, min, subtract and multiply give
-                # the single-device resolution's value exactly
-                rng32 = np.max(x32) - np.min(x32)
+                # over the real rows only (the slab-pad rows are zero and
+                # would enter the min): float32 max and min are exact in any
+                # order, so the float32 subtract and multiply give the
+                # single-device resolution's value exactly
+                lo, hi = _sharded_range(x)
+                rng32 = np.float32(hi) - np.float32(lo)
                 if float(rng32) == 0.0:
                     raise InfeasibleBound(
                         f"E_rel={float(cfg.E_rel):g} on a constant field: range(x) == 0 "
@@ -476,7 +510,7 @@ class CorrectionEngine:
                 )
             floor = torch.tensor(np.float32(gmax * cfg.pspec_floor_rel), device=grid.device)
             Delta_user = torch.maximum(grid, floor)
-            Delta_user = x.freq_to_host(Delta_user) if sharded else Delta_user.cpu().numpy()
+            Delta_user = x.freq_to_root(Delta_user) if sharded else Delta_user.cpu().numpy()
             bounds = resolve_bounds(x_dev, E_abs=E_abs, E_rel=E_rel, Delta_abs=1.0)
             pointwise = True
         elif cfg.Delta_abs is not None:
@@ -491,8 +525,27 @@ class CorrectionEngine:
             Delta_user = float(bounds.Delta)
             pointwise = False
         E = float(bounds.E)
-        l2_norm = _host_l2_norm(x32)
-        abs_max = float(np.max(np.abs(x32)) if sharded else torch.max(torch.abs(x_dev))) if x32.size else 0.0
+        if not sharded:
+            l2_norm = _host_l2_norm(x32)
+            abs_max = float(torch.max(torch.abs(x_dev))) if x32.size else 0.0
+            return self._plan_host(cfg, E, Delta_user, pointwise, x32.shape, l2_norm, abs_max)
+        # max |x| over the slabs (pad rows are zero); the root's plan or error
+        abs_max = float(field_max(torch.abs(x_dev))) if x_dev.numel() else 0.0
+        outcome = None
+        if x.is_root:
+            try:
+                outcome = self._plan_host(cfg, E, Delta_user, pointwise, x32.shape, _host_l2_norm(x32), abs_max)
+            except InfeasibleBound as e:
+                outcome = e
+        scalars = dist_fft.root_outcome(
+            _without_grids(outcome) if isinstance(outcome, FieldPlan) else outcome, x.group)
+        return outcome if x.is_root else scalars
+
+    @staticmethod
+    def _plan_host(cfg, E: float, Delta_user, pointwise: bool, shape, l2_norm: float,
+                   abs_max: float) -> FieldPlan:
+        """PLAN's host half: the float32 discipline, the ROI grid and the
+        representability checks."""
         E_proj, Delta_proj, Delta, slack_f = float32_bound_discipline(
             E, Delta_user, cfg.quant_bits, l2_norm, abs_max
         )
@@ -500,7 +553,7 @@ class CorrectionEngine:
         E_roi = getattr(cfg, "E_roi", None)
         if E_roi is not None:
             E_grid = resolve_roi_bound_grid(
-                E_roi, E, tuple(x32.shape), scale=getattr(cfg, "E_roi_scale", 0.1)
+                E_roi, E, tuple(shape), scale=getattr(cfg, "E_roi_scale", 0.1)
             )
             E_grid_proj, _, _, _ = float32_bound_discipline(
                 E_grid, Delta_user, cfg.quant_bits, l2_norm, abs_max
@@ -527,7 +580,7 @@ class CorrectionEngine:
                 stage="plan",
             )
         return FieldPlan(
-            shape=tuple(x32.shape),
+            shape=tuple(shape),
             E=E,
             Delta=Delta,
             E_proj=float(E_proj),
@@ -624,9 +677,12 @@ class CorrectionEngine:
 
         A :class:`~repro_torch.sharding.dist_fft.ShardedField` ``eps0`` (a
         collective call) runs the loop in ``dist`` mode on every rank's slab;
-        the loop state is gathered, unpadded, for the host polish, which
-        every rank runs on the same values.  The result is bitwise the same
-        at every world size.
+        the loop state is gathered, unpadded, to the root's host for the
+        polish, which the root alone runs.  The root's result is bitwise the
+        same at every world size; the other ranks' carry the iterations and
+        convergence, with ``eps``, ``spat``, ``freq`` and
+        ``final_violations`` ``None``.  Only the root's ``plan`` grids and
+        ``warm_freq`` are read.
         """
         return self.execute_field_async(eps0, plan, warm_freq=warm_freq).result()
 
@@ -688,25 +744,32 @@ class CorrectionEngine:
     def _pocs_field_sharded(self, eps0: ShardedField, plan: FieldPlan, warm_freq=None):
         """The whole-field POCS loop in ``dist`` mode on this rank's slab.
 
-        A pointwise Delta grid, an ROI grid and a warm spectrum are rounded
-        to float32 on the host (the single-device path's rounding), padded
-        to the gathered layout and cut to this rank's block; the ROI grid's
-        pad rows carry the (positive) background bound, so the zero pad rows
-        stay zero through the clip.
+        The root's pointwise Delta grid, ROI grid and warm spectrum (the
+        other ranks' are not read) are rounded to float32 on its host (the
+        single-device path's rounding), padded to the gathered layout and
+        scattered, each rank its block; the ROI grid's pad rows carry the
+        (positive) background bound, so the zero pad rows stay zero through
+        the clip.  The root says first which of the ROI grid and the warm
+        spectrum it has.
         """
+        root = eps0.is_root
+        has_roi, has_warm = dist_fft.broadcast_from_root(
+            (plan.E_grid_proj is not None, warm_freq is not None) if root else None, eps0.group)
         if plan.pointwise:
-            delta_op = eps0.to_local(eps0.pad_freq_np(np.asarray(plan.Delta_proj, dtype=np.float32)), freq=True)
+            delta_op = eps0.scatter_freq(plan.Delta_proj if root else None)
         else:
             delta_op = plan.Delta_proj
-        if plan.E_grid_proj is not None:
-            e_op = eps0.to_local(eps0.pad_spatial_np(np.asarray(plan.E_grid_proj, dtype=np.float32),
-                                                     fill=np.float32(plan.E_proj)))
+        if has_roi:
+            e_op = eps0.scatter_spatial(plan.E_grid_proj if root else None, fill=np.float32(plan.E_proj))
         else:
             e_op = plan.E_proj
         warm_op = None
-        if warm_freq is not None:
-            warm = warm_freq.detach().cpu().numpy() if isinstance(warm_freq, torch.Tensor) else warm_freq
-            warm_op = eps0.to_local(eps0.pad_freq_np(np.asarray(warm, dtype=np.complex64)), freq=True)
+        if has_warm:
+            warm = None
+            if root:
+                warm = warm_freq.detach().cpu().numpy() if isinstance(warm_freq, torch.Tensor) else warm_freq
+                warm = np.asarray(warm, dtype=np.complex64)
+            warm_op = eps0.scatter_freq(warm, torch.complex64)
         return alternating_projection(
             eps0.local,
             e_op,
@@ -728,12 +791,15 @@ class CorrectionEngine:
                 event.synchronize()
             spat, freq, eps_f = res.spat_edits, res.freq_edits, res.eps
             if field is not None:
-                # every rank's slab on the host, one slab at a time, with the
-                # pad sliced away: the single-device shapes and values (a
-                # collective call)
-                spat = field.spatial_to_host(spat, np.float64)
-                eps_f = field.spatial_to_host(eps_f, np.float64)
-                freq = field.freq_to_host(freq, np.complex128)
+                # every rank's slab on the root's host, one slab at a time,
+                # with the pad sliced away: the single-device shapes and
+                # values (a collective call); the root alone polishes
+                spat = field.spatial_to_root(spat, np.float64)
+                eps_f = field.spatial_to_root(eps_f, np.float64)
+                freq = field.freq_to_root(freq, np.complex128)
+                if not field.is_root:
+                    return FieldResult(eps=None, spat=None, freq=None, iterations=int(res.iterations),
+                                       converged=bool(res.converged), final_violations=None)
             else:
                 spat = spat.cpu().numpy().astype(np.float64)
                 freq = freq.cpu().numpy().astype(np.complex128)
@@ -928,6 +994,7 @@ class CorrectionEngine:
         spectrum, so each active half-spectrum edit contributes with its
         conjugate-pair multiplicity.
         """
+        host_stages["encode"] += 1
         k_s = int(np.count_nonzero(result.spat))
         pair_w = np.broadcast_to(rfft_pair_weights(plan.shape).numpy(), result.freq.shape)
         delta_b = np.broadcast_to(np.asarray(plan.Delta), result.freq.shape)

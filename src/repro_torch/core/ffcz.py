@@ -38,11 +38,16 @@ other.
 Sharded whole fields: :meth:`FFCz.compress` of a
 :class:`repro_torch.sharding.dist_fft.ShardedField` is a collective call
 that every rank of the field's mesh axis makes, and every rank returns the
-same blob: the field is gathered to each host (the base compressor and the
-edit encoder are host codecs), PLAN and the EXECUTE loop run sharded, and a
-blob of an uneven decomposition carries the optional ``FFCP`` section
-(:class:`PadMeta`).  :meth:`FFCz.decompress_sharded` decodes on the host and
-scatters the field to its slabs.
+same blob.  The host stages run once, on the axis's root rank (rank 0), as
+the reference's one process runs them: the field is gathered to the root's
+host alone, which runs PLAN's host half, the base compressor, the float64
+polish, ENCODE, blob assembly and verification, scatters ``eps0``'s slabs
+and hands the finished blob (with its stats) to the other ranks; PLAN's
+reductions and the EXECUTE loop run sharded on every rank.  The other
+ranks' hosts hold a slab at a time.  A blob of an uneven decomposition
+carries the optional ``FFCP`` section (:class:`PadMeta`).
+:meth:`FFCz.decompress_sharded` decodes on the root and scatters the field
+to its slabs.
 """
 
 from __future__ import annotations
@@ -63,8 +68,10 @@ from repro_torch.core.engine import (
     adaptive_quant_bits,
     default_engine,
     float32_bound_discipline,
+    host_stages,
     polish_pocs_float64,
 )
+from repro_torch.sharding import dist_fft
 from repro_torch.sharding.dist_fft import ShardedField
 
 __all__ = [
@@ -488,31 +495,69 @@ class FFCz:
     # -- compression ------------------------------------------------------
 
     def compress(self, x) -> FFCzBlob:
-        cfg = self.config
-        sharded = isinstance(x, ShardedField)
+        if isinstance(x, ShardedField):
+            return self._compress_sharded(x)
         clock = [time.perf_counter()]
-        x32 = x.to_host() if sharded else np.asarray(x, dtype=np.float32)
-
-        plan = self.engine.plan_field(x if sharded else x32, cfg)
+        x32 = np.asarray(x, dtype=np.float32)
+        plan = self.engine.plan_field(x32, self.config)
         clock.append(time.perf_counter())
-        base_blob = self.base.compress(x32, plan.E_proj)
-        x_hat = np.asarray(self.base.decompress(base_blob), dtype=np.float32)
+        base_blob, eps0 = self._base_stage(x32, plan)
         clock.append(time.perf_counter())
-
-        eps0 = x_hat - x32
-        if sharded:
-            eps0 = ShardedField(eps0, x.mesh, x.axis_name, overlap_chunks=x.overlap_chunks)
         handle = self.engine.execute_field_async(eps0, plan)
         clock.append(time.perf_counter())
         result = handle.result()
         clock.append(time.perf_counter())
+        return self._encode_stage(x32, plan, base_blob, result, clock)
+
+    def _compress_sharded(self, x: ShardedField) -> FFCzBlob:
+        """:meth:`compress` of a sharded field (a collective call): the host
+        stages on the root, the loop on every rank.  Every rank returns the
+        root's blob, stats included, or raises what the root raised."""
+        clock = [time.perf_counter()]
+        x32 = x.to_root()  # None off the root
+        plan = self.engine.plan_field(x, self.config)
+        clock.append(time.perf_counter())
+        base = None
+        if x.is_root:
+            try:
+                base = self._base_stage(x32, plan)
+            except Exception as e:  # handed to every rank just below
+                base = e
+        dist_fft.root_outcome(base if isinstance(base, BaseException) else None, x.group)
+        clock.append(time.perf_counter())
+        base_blob, eps0 = base if x.is_root else (None, None)
+        field = ShardedField.from_root(eps0, x.shape, x.mesh, x.axis_name, overlap_chunks=x.overlap_chunks)
+        handle = self.engine.execute_field_async(field, plan)
+        clock.append(time.perf_counter())
+        blob = None
+        try:
+            result = handle.result()  # the loop state gathered to the root and polished there
+            clock.append(time.perf_counter())
+            if x.is_root:
+                # provenance of an uneven slab decomposition (ignored by decompress)
+                pad_meta = (PadMeta(n_dev=x.n_dev, padded_shape=x.padded_shape)
+                            if x.padded_shape != x.shape else None)
+                blob = self._encode_stage(x32, plan, base_blob, result, clock, pad_meta)
+        except Exception as e:
+            if not x.is_root:
+                raise
+            blob = e
+        return dist_fft.root_outcome(blob, x.group)
+
+    def _base_stage(self, x32: np.ndarray, plan) -> tuple:
+        """The base compressor at ``plan.E_proj``: ``(base blob, x_hat - x32)``."""
+        host_stages["base"] += 1
+        base_blob = self.base.compress(x32, plan.E_proj)
+        x_hat = np.asarray(self.base.decompress(base_blob), dtype=np.float32)
+        return base_blob, x_hat - x32
+
+    def _encode_stage(self, x32: np.ndarray, plan, base_blob: bytes, result, clock,
+                      pad_meta: Optional[PadMeta] = None) -> FFCzBlob:
+        """ENCODE, blob assembly and verification of a polished ``result``;
+        ``clock`` holds the stage boundaries up to the polish's end."""
+        cfg = self.config
         se, fe = self.engine.encode_field(result, plan)
         clock.append(time.perf_counter())
-
-        # provenance of an uneven slab decomposition (ignored by decompress)
-        pad_meta = None
-        if sharded and x.padded_shape != x.shape:
-            pad_meta = PadMeta(n_dev=x.n_dev, padded_shape=x.padded_shape)
 
         blob = FFCzBlob(
             base_blob=base_blob,
@@ -545,6 +590,7 @@ class FFCz:
         encode) without re-running compression; ``plan`` is recomputed when
         the caller no longer holds it (planning is deterministic).
         """
+        host_stages["verify"] += 1
         if plan is None:
             plan = self.engine.plan_field(x32, self.config)
         x_final = self.decompress(blob)
@@ -588,6 +634,7 @@ class FFCz:
     # -- decompression ----------------------------------------------------
 
     def decompress(self, blob: FFCzBlob) -> np.ndarray:
+        host_stages["decode"] += 1
         try:
             return self._decompress(blob)
         except FFCzError:
@@ -636,18 +683,29 @@ class FFCz:
         axis_name: str = "data",
         parity="auto",
     ) -> ShardedField:
-        """Decode a blob to a field slab-sharded over ``mesh[axis_name]``.
+        """Decode a blob to a field slab-sharded over ``mesh[axis_name]``
+        (a collective call: every rank of the axis passes the blob).
 
         Decoding is host float64 (the stored bounds verify exactly only
-        there); the field is then scattered to its slabs, so ``to_host()``
-        is bitwise :meth:`decompress`.  Every rank of the axis decodes.
-        ``mesh=None`` takes a 1-D mesh over the default process group.  A
-        blob's :class:`PadMeta` is not consulted: the target decomposition
-        comes from ``mesh``, which need not match the writer's.  ``parity``
+        there) and runs once, on the axis's root, which then scatters the
+        field to its slabs, so ``to_host()`` is bitwise :meth:`decompress`;
+        a blob the root cannot decode raises on every rank.  ``mesh=None``
+        takes a 1-D mesh over the default process group.  A blob's
+        :class:`PadMeta` is not consulted: the target decomposition comes
+        from ``mesh``, which need not match the writer's.  ``parity``
         selects nothing (see :class:`ShardedField`).
         """
-        x = self.decompress(blob)
-        return ShardedField.shard(x, mesh, axis_name=axis_name, parity=parity)
+        if mesh is None:
+            mesh = dist_fft.default_mesh(axis_name)
+        group, _, rank = dist_fft.mesh_axis(mesh, axis_name)
+        x = None
+        if rank == dist_fft.ROOT:
+            try:
+                x = self.decompress(blob)
+            except Exception as e:  # handed to every rank just below
+                x = e
+        dist_fft.root_outcome(x if isinstance(x, BaseException) else None, group)
+        return ShardedField.from_root(x, tuple(blob.shape), mesh, axis_name)
 
     def roundtrip(self, x):
         blob = self.compress(x)

@@ -1,16 +1,17 @@
 // Hopper (sm_90a) building blocks of the port's flash and block-transform
 // kernels, as raw PTX: shared-memory addresses, mbarriers, the ftz exponent,
-// TMA tile loads and 1-D bulk copies, setmaxnreg and the bf16 warpgroup matrix
-// multiply (wgmma) with its shared-memory descriptors.
+// TMA tile loads and 1-D bulk copies, setmaxnreg, and the bf16 and TF32
+// warpgroup matrix multiplies (wgmma) with their shared-memory descriptors.
 //
 // Operand layouts (PTX ISA, "Matrix Descriptor Format"): every tile in shared
-// memory is written by TMA with the 128-byte swizzle, as rows of 64 bf16
-// values (128 bytes) in 1024-byte atoms of 8 rows.  A K-major operand (the
-// reduction index contiguous: Q and K of attention) steps 8-row groups by
-// the descriptor's stride offset (1024 bytes) and moves along K by adding
-// 32 bytes per 16 values to the start address.  An MN-major operand (V: the
-// output column contiguous) steps 8-row groups of K by the stride offset and
-// 64-column blocks of N by the leading offset.
+// memory is written by TMA with the 128-byte swizzle, as rows of 64 bf16 or
+// 32 float32 values (128 bytes) in 1024-byte atoms of 8 rows.  A K-major
+// operand (the reduction index contiguous: Q and K of attention) steps 8-row
+// groups by the descriptor's stride offset (1024 bytes) and moves along K by
+// adding 32 bytes per k-step (16 bf16 or 8 TF32 values) to the start
+// address.  An MN-major operand (V: the output column contiguous) steps
+// 8-row groups of K by the stride offset and 64-column blocks of N by the
+// leading offset.
 #pragma once
 
 #include <cuda.h>
@@ -207,6 +208,104 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---- split TF32 ------------------------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits; nearest, ties away from zero), as the
+// float32 bit pattern with its low 13 bits zero.  Inf and NaN pass through.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d (64 x N, float32) = A (64 x 8) B (8 x N) + (scale_d ? d : 0), TF32
+// inputs; both operands K-major (TF32 wgmma has no transpose).
+// wgmma_ss_tf32: A and B in shared memory.  wgmma_rs_tf32: A from registers,
+// four TF32 values a thread, the m16n8k8 fragment of each warp's 16 rows:
+// a[0] (row g, k t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4),
+// g = lane / 4, t = lane % 4.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<32>(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+    "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+    "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+    "%0, %1, %2, %3, %4, %5, %6, %7, "
+    "%8, %9, %10, %11, %12, %13, %14, %15"
+    "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<64>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+    "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+    "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+    "%0, %1, %2, %3, %4, %5, %6, %7, "
+    "%8, %9, %10, %11, %12, %13, %14, %15, "
+    "%16, %17, %18, %19, %20, %21, %22, %23, "
+    "%24, %25, %26, %27, %28, %29, %30, %31"
+    "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+    "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+    "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+    "%0, %1, %2, %3, %4, %5, %6, %7"
+    "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<48>(float (&d)[24], const uint32_t (&a)[4], uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+    "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+    "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+    "%0, %1, %2, %3, %4, %5, %6, %7, "
+    "%8, %9, %10, %11, %12, %13, %14, %15, "
+    "%16, %17, %18, %19, %20, %21, %22, %23"
+    "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+    "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+    "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+    "%0, %1, %2, %3, %4, %5, %6, %7, "
+    "%8, %9, %10, %11, %12, %13, %14, %15, "
+    "%16, %17, %18, %19, %20, %21, %22, %23, "
+    "%24, %25, %26, %27, %28, %29, %30, %31"
+    "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 

@@ -75,9 +75,12 @@ SIGNATURES = {
     "quantize": {"quantize_launch": (_P, _P, _F, _I, _F, _P, _P, _L, _P)},
     "block_transform": {"block_transform_launch": (_P, _P, _F, _I, _L, _P, _P)},
     "flash_attention": {
-        "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P)
+        "flash_attention_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        "flash_attention_scratch_floats": (_I, _I, _I, _I, _I, _I, _I),
     },
 }
+#: return types of the functions that return something else than a cudaError_t
+RESTYPES = {"flash_attention_scratch_floats": _L}
 
 #: the kernels index in 32 bits
 MAX_NUMEL = 2**31 - 1
@@ -179,7 +182,7 @@ def library(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(library_path(name)))
                 for fn, argtypes in SIGNATURES[name].items():
                     getattr(lib, fn).argtypes = list(argtypes)
-                    getattr(lib, fn).restype = ctypes.c_int
+                    getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
             except (OSError, AttributeError) as e:  # AttributeError: a launcher missing
                 raise KernelError(f"repro_torch: cannot build or load csrc/{name}.cu: {e}") from e
             _libs[name] = lib

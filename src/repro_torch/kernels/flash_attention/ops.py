@@ -2,8 +2,10 @@
 
 Replaces ``repro/kernels/flash_attention`` (the ``_flash_kernel`` Pallas
 kernel and its ``flash_attention`` wrapper).  The kernels are in
-``csrc/flash_attention.cu``: bfloat16 runs on the tensor cores (wgmma fed by
-TMA), float32 on the CUDA cores; their plain twin is
+``csrc/flash_attention.cu``, both on the tensor cores (wgmma fed by TMA):
+bfloat16 directly, float32 in split TF32 (each operand as a TF32 hi + lo
+pair, three products a product) after a prologue that writes the split
+operands into scratch this wrapper allocates; their plain twin is
 :func:`ref.attention_ref`.  The reference pads sq and sk up to its block
 sizes; the kernels mask the ragged edges themselves, so the wrapper copies
 nothing.
@@ -73,9 +75,15 @@ def flash_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    err = build.library("flash_attention").flash_attention_launch(
+    lib = build.library("flash_attention")
+    dtype = _DTYPES[q.dtype]
+    # float32: the split operands (q, k hi/lo; v transposed, hi/lo)
+    n_scratch = lib.flash_attention_scratch_floats(b, hq, hkv, sq, sk, d, dtype)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=q.device) if n_scratch else None
+    err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, hq, hkv, sq, sk, d, _DTYPES[q.dtype], scale, int(causal),
+        scratch.data_ptr() if scratch is not None else None, n_scratch,
+        b, hq, hkv, sq, sk, d, dtype, scale, int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err < 0:

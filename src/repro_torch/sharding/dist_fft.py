@@ -45,6 +45,8 @@ points; :class:`ShardedField` is the engine-facing handle.
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import pickle
 from typing import Any, Optional, Tuple, Union
 
 import numpy as np
@@ -306,6 +308,134 @@ def gather_to_host(t: torch.Tensor, group, n_dev: int, dim: int = 0, keep: Optio
     return out
 
 
+#: the rank of a field's axis that holds the whole field on its host and runs
+#: the codec's host stages (base compressor, float64 polish, encode, verify)
+ROOT = 0
+
+
+def _global(group, r: int) -> int:
+    return r if group is None else dist.get_global_rank(group, r)
+
+
+def gather_to_root(t: torch.Tensor, group, n_dev: int, dim: int = 0, keep: Optional[int] = None,
+                   dtype=None) -> Optional[np.ndarray]:
+    """:func:`gather_to_host` for the root alone: the root returns the host
+    array, every other rank ``None``.
+
+    The blocks travel one at a time, point to point: rank ``r`` sends its
+    block, the root receives it, copies it into the host array and drops it
+    before the next, so the root's card holds its own block and one
+    received block at most, and the other ranks' hosts hold nothing.
+    """
+    n = t.shape[dim]
+    keep = n * n_dev if keep is None else int(keep)
+    senders = ceil_div(keep, n)
+    me = dist.get_rank(group)
+    w = _wire(t)
+    if me != ROOT:
+        if me < senders:
+            dist.send(w, dst=_global(group, ROOT), group=group)
+        return None
+    shape = list(t.shape)
+    shape[dim] = keep
+    out = np.empty(shape, dtype=dtype if dtype is not None else torch.empty(0, dtype=t.dtype).numpy().dtype)
+    where = [slice(None)] * len(shape)
+    for r in range(senders):
+        if r == me:
+            buf = w
+        else:
+            buf = torch.empty_like(w)
+            dist.recv(buf, src=_global(group, r), group=group)
+        m = min(n, keep - r * n)
+        where[dim] = slice(r * n, r * n + m)
+        out[tuple(where)] = _unwire(buf, t).narrow(dim, 0, m).cpu().numpy()
+        del buf
+    return out
+
+
+def scatter_from_root(host: Optional[np.ndarray], group, n_dev: int, dim: int, block_shape: Tuple[int, ...],
+                      dtype: torch.dtype, device) -> torch.Tensor:
+    """Rank ``r``'s block of the root's host array ``host`` (``None`` on the
+    other ranks): ``host`` cut along ``dim`` into ``n_dev`` blocks of
+    ``block_shape`` (its extent there ``n_dev`` blocks long), as a
+    contiguous ``dtype`` tensor on ``device``.  The root sends the blocks one
+    at a time, point to point, so its card holds one block beside its own.
+    """
+    me = dist.get_rank(group)
+    if me != ROOT:
+        buf = torch.empty(block_shape, dtype=dtype, device=device)
+        w = _wire(buf)
+        dist.recv(w, src=_global(group, ROOT), group=group)
+        return _unwire(w, buf)
+    n = block_shape[dim]
+    where = [slice(None)] * len(block_shape)
+    own = None
+    for r in range(n_dev):
+        where[dim] = slice(r * n, (r + 1) * n)
+        part = torch.from_numpy(np.ascontiguousarray(host[tuple(where)])).to(device=device, dtype=dtype)
+        if r == me:
+            own = part
+        else:
+            dist.send(_wire(part), dst=_global(group, r), group=group)
+        del part
+    return own
+
+
+#: how long the other ranks wait on the host channel (:func:`host_group`)
+#: for the root's host stages, which grow with the field (the float64 polish
+#: of a 256^3 field takes about a minute on one host core)
+HOST_TIMEOUT = datetime.timedelta(hours=12)
+
+#: the default group the host channels were built under, and each channel
+#: by the id of its group (dropped when the default group is no longer that
+#: object)
+_HOST_GROUPS: dict = {"world": None, "groups": {}}
+
+
+def host_group(group):
+    """A gloo group over ``group``'s ranks with the timeout
+    :data:`HOST_TIMEOUT`: the channel on which the other ranks wait for the
+    root's host stages.  A wait there holds no device collective open, so
+    neither the device group's timeout nor NCCL's watchdog runs while the
+    root works.  Built once per group (a collective call of its ranks)."""
+    world = dist.group.WORLD
+    if _HOST_GROUPS["world"] is not world:
+        _HOST_GROUPS.update(world=world, groups={})
+    groups = _HOST_GROUPS["groups"]
+    key = id(group)
+    if key not in groups:
+        ranks = dist.get_process_group_ranks(group if group is not None else world)
+        groups[key] = (group, dist.new_group(ranks, timeout=HOST_TIMEOUT, backend="gloo",
+                                             use_local_synchronization=True))
+    return groups[key][1]
+
+
+def broadcast_from_root(obj: Any, group) -> Any:
+    """The root's ``obj`` (pickled) on every rank of ``group``, sent over
+    its host channel (:func:`host_group`)."""
+    if dist.get_world_size(group) == 1:
+        return obj
+    box = [obj if dist.get_rank(group) == ROOT else None]
+    dist.broadcast_object_list(box, src=_global(group, ROOT), group=host_group(group))
+    return box[0]
+
+
+def root_outcome(outcome: Any, group) -> Any:
+    """Every rank's copy of what the root's host stage gave: its value, or
+    the exception it raised, which every rank then raises (so the other
+    ranks never wait for a root that has given up).  ``outcome`` is read on
+    the root only."""
+    if dist.get_rank(group) == ROOT and isinstance(outcome, BaseException):
+        try:
+            pickle.dumps(outcome)
+        except Exception:
+            outcome = RuntimeError(f"{type(outcome).__name__}: {outcome}")
+    got = broadcast_from_root(outcome, group)
+    if isinstance(got, BaseException):
+        raise got
+    return got
+
+
 def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In-place all-reduce of ``t`` over ``group``; returns ``t``."""
     dist.all_reduce(t, op=op, group=group)
@@ -462,9 +592,12 @@ class ShardedField:
     reference's signature has it and selects nothing: every shape is
     bitwise across world sizes and none against the fused single-device
     transform; ``parity`` (the attribute) reports the reference's class.
-    ``to_host()`` is the gathered, unpadded host copy (cached), moved one
-    slab at a time: the staging buffer of the host stages (base compressor,
-    polish, encode).
+    The codec's host stages (base compressor, float64 polish, encode) run
+    on the axis's :data:`ROOT` rank alone: :meth:`to_root` is the gathered,
+    unpadded host copy there (``None`` on the other ranks), and
+    :meth:`from_root` scatters a host array of the root to its slabs.
+    :meth:`to_host` gathers the copy to every rank.  Each moves one slab at
+    a time.
     """
 
     def __init__(
@@ -496,7 +629,6 @@ class ShardedField:
         self.padded_shape = padded_spatial_shape(shape, n_dev)
         self.device = mesh_device(mesh)
         self.n_dev = n_dev
-        self._host: Optional[np.ndarray] = None
 
     @classmethod
     def shard(
@@ -538,6 +670,30 @@ class ShardedField:
             local[keep:] = 0
         field.local = local
         return field
+
+    @classmethod
+    def from_root(
+        cls,
+        array: Optional[np.ndarray],
+        gshape: Tuple[int, ...],
+        mesh,
+        axis_name: str = "data",
+        overlap_chunks: int = DEFAULT_OVERLAP_CHUNKS,
+    ) -> "ShardedField":
+        """The root's whole field ``array`` (true extents; ``None`` on the
+        other ranks), scattered to its slabs one slab at a time: every rank
+        gets the slab the constructor would cut, without the whole field on
+        its host."""
+        field = cls.__new__(cls)
+        field._setup(tuple(int(n) for n in gshape), mesh, axis_name, overlap_chunks)
+        grid = None if array is None else np.asarray(array, dtype=np.float32)
+        field.local = field.scatter_spatial(grid)
+        return field
+
+    @property
+    def is_root(self) -> bool:
+        """True on the rank that runs the host stages (:data:`ROOT`)."""
+        return self.rank == ROOT
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -617,11 +773,40 @@ class ShardedField:
         axis = self.freq_axis
         return gather_to_host(local, self.group, self.n_dev, axis, self.freq_shape[axis], dtype)
 
+    def spatial_to_root(self, local: torch.Tensor, dtype=None) -> Optional[np.ndarray]:
+        """Every rank's spatial slab ``local``, as one host array at the true
+        extents on the root, ``None`` elsewhere (:func:`gather_to_root`)."""
+        return gather_to_root(local, self.group, self.n_dev, 0, self.gshape[0], dtype)
+
+    def freq_to_root(self, local: torch.Tensor, dtype=None) -> Optional[np.ndarray]:
+        """Every rank's half-spectrum block ``local``, as one host array at
+        the true extents on the root, ``None`` elsewhere."""
+        axis = self.freq_axis
+        return gather_to_root(local, self.group, self.n_dev, axis, self.freq_shape[axis], dtype)
+
+    def scatter_spatial(self, grid: Optional[np.ndarray], fill: float = 0.0) -> torch.Tensor:
+        """This rank's slab of the root's true-extent spatial grid (``None``
+        on the other ranks; float32), its pad rows ``fill``."""
+        padded = None if grid is None else self.pad_spatial_np(np.asarray(grid, dtype=np.float32), fill)
+        block = (self.padded_shape[0] // self.n_dev,) + self.gshape[1:]
+        return scatter_from_root(padded, self.group, self.n_dev, 0, block, torch.float32, self.device)
+
+    def scatter_freq(self, grid: Optional[np.ndarray], dtype=torch.float32) -> torch.Tensor:
+        """This rank's block of the root's true-extent half-spectrum grid
+        (``None`` on the other ranks), zero-padded, as ``dtype``."""
+        padded = None if grid is None else self.pad_freq_np(
+            np.asarray(grid, dtype=torch.empty(0, dtype=dtype).numpy().dtype))
+        return scatter_from_root(padded, self.group, self.n_dev, self.freq_axis, self.local_freq_shape, dtype,
+                                 self.device)
+
+    def to_root(self) -> Optional[np.ndarray]:
+        """The gathered UNPADDED host copy on the root, ``None`` on the
+        other ranks."""
+        return self.spatial_to_root(self.local)
+
     def to_host(self) -> np.ndarray:
-        """Gathered UNPADDED host copy (cached), on every rank."""
-        if self._host is None:
-            self._host = self.spatial_to_host(self.local)
-        return self._host
+        """The gathered UNPADDED host copy, on every rank (not kept)."""
+        return self.spatial_to_host(self.local)
 
 
 def pencil_rfftn(field: ShardedField) -> torch.Tensor:

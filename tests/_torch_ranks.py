@@ -241,6 +241,129 @@ def body_sharded(rank, world):
     return out
 
 
+# the root's host stages: shapes even and uneven at 2 and 3 ranks, 2-D too;
+# the bounds that build a grid on the root (pspec, ROI) and one that builds
+# none; the host-peak field
+ROOT_CASES = [(shape, name) for shape in ((16, 8, 12), (9, 8, 10), (32, 24))
+              for name in ("Delta_rel", "pspec_rel", "E_roi")]
+PEAK_SHAPE = (64, 64, 64)
+
+
+def _stage_counts():
+    """The host stages' counters (``engine.host_stages``), zeroed."""
+    from repro_torch.core.engine import host_stages
+
+    for k in host_stages:
+        host_stages[k] = 0
+    return host_stages
+
+
+def body_root(rank, world):
+    """Which rank runs the sharded compress's host stages (base compressor,
+    float64 polish, encode, verify) and the sharded decode, how often, with
+    which blob; the host peak of a PEAK_SHAPE compress (tracemalloc); and
+    what every rank raises when the root's base compressor fails."""
+    import hashlib
+    import tracemalloc
+
+    import torch
+
+    from repro_torch.compressors import get_compressor
+    from repro_torch.core.ffcz import FFCz, FFCzConfig
+    from repro_torch.sharding import ShardedField
+
+    mesh = _mesh(world)
+    base = get_compressor("szlike")
+    out = {"compress": {}, "decode": {}}
+    for shape, name in ROOT_CASES:
+        x = codec_field(shape)
+        codec = FFCz(base, FFCzConfig(**codec_configs(shape)[name]), device="cpu")
+        calls = _stage_counts()
+        blob = codec.compress(ShardedField.shard(x, mesh))
+        out["compress"][(shape, name)] = {
+            "calls": {k: calls[k] for k in ("base", "polish", "encode", "verify")},
+            "digest": hashlib.sha256(blob.to_bytes()).hexdigest(),
+            "payload_digest": hashlib.sha256(blob.payload_bytes()).hexdigest(),
+            "margins": (blob.stats.spatial_margin, blob.stats.frequency_margin),
+        }
+        calls = _stage_counts()
+        back = codec.decompress_sharded(blob, mesh)
+        decodes = calls["decode"]
+        want = ShardedField.shard(codec.decompress(blob), mesh).local
+        out["decode"][(shape, name)] = {"decodes": decodes, "bitwise": bool(torch.equal(back.local, want))}
+
+    x = codec_field(PEAK_SHAPE)
+    codec = FFCz(base, FFCzConfig(E_rel=1e-2, Delta_rel=1e-3), device="cpu")
+    field = ShardedField.shard(x, mesh)
+    tracemalloc.start()
+    blob = codec.compress(field)
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    out["peak"] = {"bytes": peak, "slab_f64": field.local.numel() * 8, "field_f64": x.size * 8,
+                   "digest": hashlib.sha256(blob.payload_bytes()).hexdigest()}
+
+    class _Failing:
+        def compress(self, x, E):
+            raise RuntimeError("planted base compressor failure")
+
+    try:
+        FFCz(_Failing(), FFCzConfig(E_rel=1e-2, Delta_rel=1e-3), device="cpu").compress(
+            ShardedField.shard(codec_field(ROOT_CASES[0][0]), mesh))
+        out["root_error"] = None
+    except RuntimeError as e:
+        out["root_error"] = str(e)
+    return out
+
+
+# a root whose host stages outlast its field group's timeout (seconds)
+SLOW_GROUP_TIMEOUT, SLOW_ROOT_SLEEP = 5.0, 12.0
+
+
+def body_slow_root(rank, world):
+    """ROOT_CASES[0]'s sharded compress and decode over a mesh whose gloo
+    group times out after SLOW_GROUP_TIMEOUT s, while the root's float64
+    polish and its decode each first sleep SLOW_ROOT_SLEEP s: the other
+    ranks wait for it on the host channel, and every rank gets the root's
+    blob and its slab of the decode."""
+    import datetime
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.compressors import get_compressor
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.ffcz import FFCz, FFCzConfig
+    from repro_torch.sharding import ShardedField
+
+    group = dist.new_group(list(range(world)), timeout=datetime.timedelta(seconds=SLOW_GROUP_TIMEOUT),
+                           backend="gloo")
+    mesh = DeviceMesh.from_group(group, "cpu", mesh_dim_names=("data",))
+    shape, name = ROOT_CASES[0]
+    x = codec_field(shape)
+    codec = FFCz(get_compressor("szlike"), FFCzConfig(**codec_configs(shape)[name]), device="cpu")
+    want = ShardedField.shard(codec.decompress(codec.compress(x)), mesh).local
+
+    def slow(fn):
+        def call(*args, **kwargs):
+            time.sleep(SLOW_ROOT_SLEEP)
+            return fn(*args, **kwargs)
+        return call
+
+    if rank == 0:
+        engine_mod.polish_pocs_float64 = slow(engine_mod.polish_pocs_float64)
+    dist.barrier()
+    t0 = time.perf_counter()
+    blob = codec.compress(ShardedField.shard(x, mesh))
+    waited = time.perf_counter() - t0
+    if rank == 0:
+        codec.decompress = slow(codec.decompress)
+    back = codec.decompress_sharded(blob, mesh)
+    return {"payload_digest": hashlib.sha256(blob.payload_bytes()).hexdigest(), "waited": waited,
+            "bitwise": bool(torch.equal(back.local, want))}
+
+
 def _data_mesh(world, model=1):
     from repro_torch.launch.mesh import make_mesh
 
@@ -720,8 +843,9 @@ def body_cost(rank, world):
     return {"flops": c.flops, "collectives": c.collectives, "coll_by_name": c.coll_by_name}
 
 
-BODIES = {"transforms": body_transforms, "sharded": body_sharded, "mesh": body_mesh, "tp": body_tp,
-          "pipeline": body_pipeline, "cost": body_cost}
+BODIES = {"transforms": body_transforms, "sharded": body_sharded, "root": body_root,
+          "slow_root": body_slow_root, "mesh": body_mesh, "tp": body_tp, "pipeline": body_pipeline,
+          "cost": body_cost}
 
 
 # ---------------------------------------------------------------------------

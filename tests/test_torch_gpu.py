@@ -188,6 +188,63 @@ def test_flash_attention_non_causal_matches_twin(dtype):
         assert _bf16_within_one_ulp(got, want)
 
 
+# float32 only (split TF32): the smoke configs' head dim 16 at FLASH_CASES,
+# and the families' float32 shapes (granite-moe's GQA 3 at d = 64, zamba2's
+# d = 112), each causal and not
+FLASH_F32_CASES = ([(c, 16) for c in FLASH_CASES]
+                   + [((4, 24, 8, 2048, 2048), 64), ((4, 32, 32, 2048, 2048), 112)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("case", FLASH_F32_CASES, ids=str)
+def test_flash_attention_float32_split_tf32_matches_twin(case, causal):
+    dev = _cuda()
+    (b, hq, hkv, sq, sk), d = case
+    rng = np.random.default_rng(sq * 7 + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+               for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    before = t_flash.launches["flash_attention"]
+    got = t_flash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert t_flash.launches["flash_attention"] == before + 1
+    assert float(torch.max(torch.abs(got - attention_ref(q, k, v, causal=causal)))) <= 3e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 112, 128])
+def test_flash_attention_float32_holds_over_long_kv_when_v_has_a_mean(d):
+    """V = 1 + noise over llava's 4928 kv rows: O sums thousands of
+    positive terms, where accumulating it on the tensor cores across the
+    kv tiles drifted 6e-5 from the twin (a llava forward's attention)."""
+    dev = _cuda()
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+               for s in ((2, 8, 4928, d), (2, 2, 4928, d), (2, 2, 4928, d)))
+    v += 1.0
+    got = t_flash.flash_attention(q, k, v)
+    assert float(torch.max(torch.abs(got - attention_ref(q, k, v)))) <= 3e-5
+
+
+@pytest.mark.gpu
+def test_flash_attention_float32_refuses_too_little_scratch():
+    from repro_torch.kernels import build
+
+    dev = _cuda()
+    q = torch.zeros((1, 2, 8, 64), device=dev)
+    out = torch.empty_like(q)
+    lib = build.library("flash_attention")
+    need = lib.flash_attention_scratch_floats(1, 2, 2, 8, 8, 64, 0)
+    assert need > 0 and lib.flash_attention_scratch_floats(1, 2, 2, 8, 8, 64, 1) == 0
+    scratch = torch.empty(need, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (1, 2, 2, 8, 8, 64, 0, 0.125, 1, stream)
+    assert lib.flash_attention_launch(q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(),
+                                      scratch.data_ptr(), need - 1, *args) != 0
+    assert lib.flash_attention_launch(q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(),
+                                      scratch.data_ptr(), need, *args) == 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("nan_head", [(0, 1), (1, 0)], ids=str)
 @pytest.mark.parametrize("d", [64, 112, 128])
@@ -275,8 +332,8 @@ def test_flash_attention_split_p_holds_the_bar_a_single_bf16_p_misses(d, tmp_pat
 
     def single_p():
         out = torch.empty_like(q)
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, s, d, 1,
-                     1.0 / math.sqrt(d), 1, torch.cuda.current_stream().cuda_stream)
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, 0, b, hq, hkv, s, s, d,
+                     1, 1.0 / math.sqrt(d), 1, torch.cuda.current_stream().cuda_stream)
         assert err == 0
         return out
 

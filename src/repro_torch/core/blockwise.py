@@ -39,6 +39,7 @@ from typing import Any, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.pocs import AlternatingProjectionResult, alternating_projection_batched
 from repro_torch.device import resolve_device
 from repro_torch.sharding import dist_fft
@@ -166,9 +167,16 @@ def _pocs_sharded(packed, E_blk, D_blk, max_iters, mesh, axis, fft_impl="xla", w
 def _run_packed(packed, E_blk, D_blk, max_iters, backend, mesh, axis, fft_impl, warm, donate=False,
                 keep_edits=True):
     """The packed loop on ``backend``: batched, or sharded over ``mesh[axis]``."""
-    if backend == "sharded":
-        return _pocs_sharded(packed, E_blk, D_blk, max_iters, mesh, axis, fft_impl, warm, donate, keep_edits)
-    return _pocs_batched(packed, E_blk, D_blk, max_iters, fft_impl, warm, donate=donate, keep_edits=keep_edits)
+    with tracing.span("ffcz.loop") as s:
+        rows, block = packed.shape
+        if backend == "sharded":
+            res = _pocs_sharded(packed, E_blk, D_blk, max_iters, mesh, axis, fft_impl, warm, donate, keep_edits)
+        else:
+            res = _pocs_batched(packed, E_blk, D_blk, max_iters, fft_impl, warm, donate=donate,
+                                keep_edits=keep_edits)
+        if s:
+            s.count(rows=rows, block=block, iterations=res.iterations.sum(), converged=res.converged.sum())
+    return res
 
 
 def _segment_stats(res, seg: torch.Tensor, n: int) -> BatchCorrectionStats:
@@ -192,36 +200,41 @@ def _segments(counts: Sequence[int], device) -> torch.Tensor:
     return torch.from_numpy(np.repeat(np.arange(len(counts)), counts)).to(device)
 
 
-def _correct_batch_core(tensors, E_arr, Delta_arr, block, max_iters, return_edits, return_corrected,
+def _correct_batch_core(tensors, E, Delta, block, max_iters, return_edits, return_corrected,
                         backend="batched", fft_impl="xla", warm=None, mesh=None, axis="data"):
-    """The whole batched correction: pack, batched (or sharded) loop,
-    unpack, stats."""
+    """The whole batched correction: pack (per-tensor bounds included),
+    batched (or sharded) loop, unpack, stats."""
     _check_backend(backend)
-    tiles_list, pads, counts = [], [], []
-    for t in tensors:
-        tiles, pad = tile_1d(t.to(torch.float32), block)
-        tiles_list.append(tiles)
-        pads.append(pad)
-        counts.append(tiles.shape[0])
-    packed = torch.cat(tiles_list, dim=0)
-    del tiles_list, tiles
-    seg = _segments(counts, packed.device)
-    warm_packed = None
-    if warm is not None:
-        warm_packed = torch.cat([torch.as_tensor(w, device=packed.device).to(torch.complex64)
-                                 for w in warm], dim=0)
-    res = _run_packed(packed, E_arr[seg], Delta_arr[seg], max_iters, backend, mesh, axis, fft_impl, warm_packed,
+    with tracing.span("ffcz.engine.pack"):
+        n, dev = len(tensors), tensors[0].device
+        E_arr, Delta_arr = as_bound_array(E, n, dev), as_bound_array(Delta, n, dev)
+        tiles_list, pads, counts = [], [], []
+        for t in tensors:
+            tiles, pad = tile_1d(t.to(torch.float32), block)
+            tiles_list.append(tiles)
+            pads.append(pad)
+            counts.append(tiles.shape[0])
+        packed = torch.cat(tiles_list, dim=0)
+        del tiles_list, tiles
+        seg = _segments(counts, packed.device)
+        warm_packed = None
+        if warm is not None:
+            warm_packed = torch.cat([torch.as_tensor(w, device=packed.device).to(torch.complex64)
+                                     for w in warm], dim=0)
+        E_blk, D_blk = E_arr[seg], Delta_arr[seg]
+    res = _run_packed(packed, E_blk, D_blk, max_iters, backend, mesh, axis, fft_impl, warm_packed,
                       donate=True, keep_edits=return_edits)
-    del packed, warm_packed
-    stats = _segment_stats(res, seg, len(tensors))
-    eps, edits, offsets = res.eps, [], np.cumsum((0,) + tuple(counts))
-    if return_edits:
-        edits = [(res.spat_edits[a:b], res.freq_edits[a:b]) for a, b in zip(offsets[:-1], offsets[1:])]
-    del res
-    corrected = []
-    if return_corrected:
-        corrected = [untile_1d(eps[a:b], t.shape, pad).to(t.dtype)
-                     for t, pad, a, b in zip(tensors, pads, offsets[:-1], offsets[1:])]
+    del packed, warm_packed, E_blk, D_blk
+    with tracing.span("ffcz.engine.unpack"):
+        stats = _segment_stats(res, seg, n)
+        eps, edits, offsets = res.eps, [], np.cumsum((0,) + tuple(counts))
+        if return_edits:
+            edits = [(res.spat_edits[a:b], res.freq_edits[a:b]) for a, b in zip(offsets[:-1], offsets[1:])]
+        del res
+        corrected = []
+        if return_corrected:
+            corrected = [untile_1d(eps[a:b], t.shape, pad).to(t.dtype)
+                         for t, pad, a, b in zip(tensors, pads, offsets[:-1], offsets[1:])]
     return corrected, edits, stats
 
 
@@ -289,25 +302,19 @@ def correct_packed(packed, counts: Sequence[int], E, Delta, max_iters: int = 50,
     _check_backend(backend)
     if backend == "sharded" and mesh is None:
         mesh = dist_fft.default_mesh(axis)
-    if isinstance(packed, torch.Tensor):
-        dev = packed.device
-    else:
-        dev = resolve_device(device)
-        packed = torch.from_numpy(np.ascontiguousarray(packed, dtype=np.float32)).to(dev)
-    n = len(counts)
-    seg = _segments(counts, dev)
-    res = _run_packed(
-        packed,
-        as_bound_array(E, n, dev)[seg],
-        as_bound_array(Delta, n, dev)[seg],
-        max_iters,
-        backend,
-        mesh,
-        axis,
-        fft_impl,
-        None if warm is None else torch.as_tensor(warm, device=dev).to(torch.complex64),
-    )
-    return res, _segment_stats(res, seg, n)
+    with tracing.span("ffcz.engine.pack"):
+        if isinstance(packed, torch.Tensor):
+            dev = packed.device
+        else:
+            dev = resolve_device(device)
+            packed = torch.from_numpy(np.ascontiguousarray(packed, dtype=np.float32)).to(dev)
+        n = len(counts)
+        seg = _segments(counts, dev)
+        E_blk, D_blk = as_bound_array(E, n, dev)[seg], as_bound_array(Delta, n, dev)[seg]
+        warm = None if warm is None else torch.as_tensor(warm, device=dev).to(torch.complex64)
+    res = _run_packed(packed, E_blk, D_blk, max_iters, backend, mesh, axis, fft_impl, warm)
+    with tracing.span("ffcz.engine.unpack"):
+        return res, _segment_stats(res, seg, n)
 
 
 def correct_batch(tensors: Sequence[Any], E, Delta, block: int = 4096, max_iters: int = 50,
@@ -357,8 +364,8 @@ def correct_batch(tensors: Sequence[Any], E, Delta, block: int = 4096, max_iters
     if warm_freq is not None and len(warm_freq) != n:
         raise ValueError(f"expected {n} per-tensor warm spectra, got {len(warm_freq)}")
     corrected, edits, stats = _correct_batch_core(
-        tensors, as_bound_array(E, n, dev), as_bound_array(Delta, n, dev), block, max_iters,
-        return_edits, return_corrected, backend, fft_impl, warm_freq, mesh, axis,
+        tensors, E, Delta, block, max_iters, return_edits, return_corrected, backend, fft_impl, warm_freq,
+        mesh, axis,
     )
     if return_edits:
         return corrected, edits, stats

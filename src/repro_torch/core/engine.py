@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import host
+from repro_torch import host, tracing
 from repro_torch.coding.quantize import DEFAULT_QUANT_BITS
 from repro_torch.core import blockwise
 from repro_torch.core.bounds import (
@@ -839,6 +839,7 @@ class CorrectionEngine:
             return t
         return torch.from_numpy(np.ascontiguousarray(t)).to(self.device)
 
+    @tracing.traced("ffcz.engine.correct")
     def correct(
         self,
         tensors: Sequence[Any],
@@ -886,6 +887,7 @@ class CorrectionEngine:
         except (RuntimeError, MemoryError) as e:
             raise classify_exception(e, "execute") from e
 
+    @tracing.traced("ffcz.engine.correct")
     def correct_async(
         self,
         tensors: Sequence[Any],
@@ -927,7 +929,8 @@ class CorrectionEngine:
                 raise classify_exception(e, "execute") from e
         specs = [_spec(t) for t in tensors]
         try:
-            packed, counts, pads = blockwise.pack_batch(tensors, block, out=staging)
+            with tracing.span("ffcz.engine.pack"):
+                packed, counts, pads = blockwise.pack_batch(tensors, block, out=staging)
             warm = None
             if warm_freq is not None:
                 warm = np.concatenate(

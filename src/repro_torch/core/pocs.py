@@ -85,6 +85,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.cubes import (
     project_box_relaxed,
     project_fcube,
@@ -353,7 +354,8 @@ def alternating_projection(
         if check_every == 1 or it % check_every == 0 or it == max_iters - 1:
             if viol_dev is None:
                 viol_dev = count_violations(delta)
-            viol = int(viol_dev)  # the host waits for the device here only
+            with tracing.span("ffcz.loop.wait"):
+                viol = int(viol_dev)  # the host waits for the device here only
             done = viol == 0
         else:
             viol = -1
@@ -490,7 +492,8 @@ def alternating_projection_batched(
         del delta
         done_now = viol == 0
         stepping = active & ~done_now
-        stepping_any = bool(stepping.any())  # the host waits for the device here only
+        with tracing.span("ffcz.loop.wait"):
+            stepping_any = bool(stepping.any())  # the host waits for the device here only
         if stepping_any:
             col = stepping[:, None]
             if keep_edits:

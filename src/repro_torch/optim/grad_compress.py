@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import tree
+from repro_torch import tracing, tree
 from repro_torch.core.engine import CorrectionEngine, default_engine
 from repro_torch.optim.adamw import _f32
 
@@ -55,6 +55,7 @@ def _quantize_dequantize(g: torch.Tensor, bits: int, E_rel: float, gmax: Optiona
     return (codes * step).to(g.dtype), codes, step
 
 
+@tracing.traced("ffcz.grad.compress_gradients")
 def compress_gradients(
     grads: Any,
     *,
@@ -241,6 +242,7 @@ def _exchange(send_parts, recv_sizes, layout):
     return list(torch.split(recv, list(recv_sizes)))
 
 
+@tracing.traced("ffcz.grad.compress_sharded_gradients")
 def compress_sharded_gradients(
     grads: Dict[str, torch.Tensor],
     layout,

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.engine import CorrectionEngine, default_engine
 
 
@@ -95,6 +96,7 @@ def _replaced(tree: dict, path, value) -> dict:
     return out
 
 
+@tracing.traced("ffcz.kv.compress_cache")
 def compress_cache(
     cache: dict,
     comp,
